@@ -6,25 +6,33 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Phases, each printed as it ends; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit;
-2. build: the Poseidon2 kernels from ``tpu_acir_prover_torch/csrc``;
+2. build: the Poseidon2 kernels from ``tpu_acir_prover_torch/csrc``, with
+   ptxas's registers and spills per kernel;
 3. kernels: each kernel against its plain torch twin on the card at the
-   prover's shapes, bit for bit, with both times;
-4. parity: proof bytes of the port on the card equal those of the JAX
-   package's numpy prover, on a plain and a lookup circuit (test config);
+   prover's shapes, bit for bit, with both times and the card's bound for
+   the same work;
+4. parity: proof bytes of the port on the card equal those of the port on
+   the CPU (plain twins), on a plain and a lookup circuit (test config);
+   the CPU tests hold the CPU bytes to the JAX package's numpy prover;
 5. main path: the port's CLI proves the 2^17-row ECDSA secp256k1 circuit
-   (standard config, LDE 2^20 rows), writes the vk and verifies; the JAX
-   package's verifier accepts the proof and rejects it with a byte flipped;
-   a second proof on the warm proving key gives the phase breakdown, peak
-   device memory and the kernels' launch counts.
+   (standard config, LDE 2^20 rows), writes the vk and verifies; the port's
+   verifier accepts the proof and rejects it with a byte flipped; a second
+   proof on the warm proving key gives the phase breakdown, peak device
+   memory and the kernels' launch counts, and a third, under
+   ``torch.profiler``, the device time of all kernels and of the Poseidon2
+   kernels in one proof.
 
-The last two lines are a JSON object with a record per kernel and
-``{"ok": true, "device": {...}}``.  The port needs no JAX, and this
-script makes sure of it by blocking the import.
+The last three lines are a JSON object with a record per kernel, the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.  The
+port needs neither JAX nor the JAX package, and this script makes sure of
+it by blocking both imports.
 """
 
 import sys
 
-sys.modules["jax"] = None  # the port and its oracles must run without JAX
+# the port and this script must run without JAX and without the JAX package
+sys.modules["jax"] = None
+sys.modules["tpu_acir_prover"] = None
 
 import json  # noqa: E402
 import os  # noqa: E402
@@ -35,50 +43,46 @@ import time  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
 PALLAS = "tpu_acir_prover/kernels/poseidon_pallas.py"
 SOURCE = "tpu_acir_prover_torch/csrc/poseidon2.cu"
 REPLACES = {"leaf_hash": f"{PALLAS}:233", "two_to_one_level": f"{PALLAS}:283",
             "permute": f"{PALLAS}:155"}
 LEAF_WIDTHS = (43, 17, 18, 12, 4)   # the ECDSA circuit's oracle widths
 LEAF_ROWS = 1 << 20                 # its LDE rows at rate 8
-LEVEL_PARENTS = 1 << 19             # its widest Merkle level
+TREE_CAP = 16                       # its Merkle cap (cap height 4)
 GRIND_STATES = 1 << 17              # one grind launch
+POSEIDON_KERNELS = ("leaf_hash_kernel", "merkle_levels_kernel",
+                    "permute_kernel")   # names in csrc/poseidon2.cu
+
+# The card's bound for a batch of Poseidon2 permutations: the larger of its
+# bytes over the memory rate and its 32-bit multiply-adds over their peak
+# rate.  A permutation is 736 Goldilocks products of 8 multiply-adds each;
+# an H100 SXM does 132 SMs x 64 multiply-adds per clock at 1.98 GHz (the
+# published 67 TFLOP/s fp32 over 4) and moves 3.35 TB/s.
+MADDS_PER_PERMUTATION = 736 * 8
+MADDS_PER_S = 132 * 64 * 1.98e9
+BYTES_PER_S = 3.35e12
 
 
 def say(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps):
-    """Mean device time of fn over reps calls, after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def bound(permutations, nbytes):
+    """(bound_ms, bound_by) for a batch of permutations moving nbytes."""
+    ops_ms = permutations * MADDS_PER_PERMUTATION / MADDS_PER_S * 1e3
+    bytes_ms = nbytes / BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else \
+        (bytes_ms, "bytes")
 
 
-def field_input(rng, shape, device):
-    """Canonical values < p from a seed, with the edge values mixed in."""
-    from tpu_acir_prover.field.gl import P
+def max_abs_err(got, want):
     from tpu_acir_prover_torch.field import gl
-    v = rng.integers(0, P, size=shape, dtype=np.uint64).reshape(-1)
-    edges = np.array([0, P - 1, 1 << 32, (1 << 32) - 1], dtype=np.uint64)
-    pos = rng.choice(v.size, size=min(v.size, 4096), replace=False)
-    v[pos] = edges[np.arange(pos.size) % edges.size]
-    return gl.from_u64(v.reshape(shape), device)
-
-
-def max_abs_err(a, b):
-    from tpu_acir_prover_torch.field import gl
-    x, y = gl.to_u64(a).astype(object), gl.to_u64(b).astype(object)
-    return int(abs(x - y).max()) if x.size else 0
+    err = 0
+    for a, b in zip(got, want):
+        x, y = gl.to_u64(a).astype(object), gl.to_u64(b).astype(object)
+        err = max(err, int(abs(x - y).max()) if x.size else 0)
+    return err
 
 
 def phase_device():
@@ -101,50 +105,72 @@ def phase_build():
     torch.cuda.synchronize()
     say(f"[build] {lib.name} built and loaded in "
         f"{time.perf_counter() - t0:.3f} s")
+    for line in kp.ptxas_report():
+        say(f"[build] ptxas: {line}")
 
 
 def phase_kernels():
     """Kernel vs plain twin on the card; returns per-kernel records."""
     from tpu_acir_prover_torch.field import poseidon as plain
     from tpu_acir_prover_torch.kernels import poseidon as kp
+    from tpu_acir_prover_torch.kernels.bench import cuda_ms, field_input
     rng = np.random.default_rng(2024)
     dev = torch.device("cuda")
-    cases = [("leaf_hash", f"(2^20, {c})", field_input(rng, (LEAF_ROWS, c), dev),
-              kp.leaf_hash, plain.hash_no_pad) for c in LEAF_WIDTHS]
-    cases.append(("two_to_one_level", "(2^20, 4) -> (2^19, 4)",
-                  field_input(rng, (2 * LEVEL_PARENTS, 4), dev),
-                  kp.two_to_one_level,
-                  lambda x: plain.two_to_one(x[0::2], x[1::2])))
+    n_levels = (LEAF_ROWS // TREE_CAP).bit_length() - 1
+    cases = []
+    for c in LEAF_WIDTHS:
+        x = field_input(rng, (LEAF_ROWS, c), dev)
+        cases.append(("leaf_hash", f"(2^20, {c})", x,
+                      lambda x: [kp.leaf_hash(x)],
+                      lambda x: [plain.hash_no_pad(x)],
+                      bound(LEAF_ROWS * -(-c // 8), LEAF_ROWS * (c + 4) * 8)))
+    cases.append(("two_to_one_level",
+                  f"(2^20, 4) leaves -> {n_levels} levels to a {TREE_CAP}-"
+                  f"digest cap ({kp.LEVELS_PER_LAUNCH} levels per launch; "
+                  f"from {kp.NARROW_CHILDREN} children up "
+                  f"{kp.NARROW_LEVELS} per launch, four threads a parent)",
+                  field_input(rng, (LEAF_ROWS, 4), dev),
+                  lambda x: kp.two_to_one_levels(x, n_levels),
+                  lambda x: plain.two_to_one_levels(x, n_levels),
+                  bound(LEAF_ROWS - TREE_CAP,
+                        (2 * LEAF_ROWS - TREE_CAP) * 32)))
     cases.append(("permute", "(2^17, 12)",
                   field_input(rng, (GRIND_STATES, 12), dev),
-                  kp.permute, plain.permute))
+                  lambda x: [kp.permute(x)], lambda x: [plain.permute(x)],
+                  bound(GRIND_STATES, GRIND_STATES * 12 * 8 * 2)))
     records = {}
-    for name, shape, x, kern, twin in cases:
+    for name, shape, x, kern, twin, (bound_ms, bound_by) in cases:
         got, want = kern(x), twin(x)
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
-        if err or not torch.equal(got, want):
+        if err or len(got) != len(want) or \
+                not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"{name} {shape}: kernel differs from the "
                                  f"plain twin (max abs err {err})")
         ms = cuda_ms(lambda: kern(x), 10)
         plain_ms = cuda_ms(lambda: twin(x), 1)
         say(f"[kernels] {name} {shape}: bit-identical to the plain twin; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
-        # the record keeps the first (widest) shape of each kernel
-        records.setdefault(name, {
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "shape": shape, "max_abs_err": err,
-            "ms": round(ms, 4), "plain_ms": round(plain_ms, 2)})
+            f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound")
+        rec = {"name": name, "route": "cuda", "source": SOURCE,
+               "replaces": REPLACES[name], "launches": None,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None, "shape": shape}
+        # the record keeps the first (widest) shape; the others ride along
+        first = records.setdefault(name, rec)
+        if first is not rec:
+            first.setdefault("other_shapes", []).append(
+                {k: rec[k] for k in ("shape", "ms", "plain_ms", "bound_ms")})
     return records
 
 
-def _circuits():
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
-    import factories
-    from tpu_acir_prover.acir.translator import translate_program
-    from tpu_acir_prover.circuit.builder import CircuitBuilder
-    from tpu_acir_prover.circuit.compile import compile_circuit
-    prog, wm = factories.fibonacci()
+def _small_circuits():
+    from tpu_acir_prover_torch.acir.translator import translate_program
+    from tpu_acir_prover_torch.circuit.builder import CircuitBuilder
+    from tpu_acir_prover_torch.circuit.compile import compile_circuit
+    from tpu_acir_prover_torch.utils import circuits
+    prog, wm = circuits.fibonacci()
     tr = translate_program(prog)
     yield "fibonacci", compile_circuit(tr.builder), tr.external_values(wm)
     b = CircuitBuilder(lookup_bits=8)
@@ -159,46 +185,45 @@ def _circuits():
 
 
 def phase_parity():
-    from tpu_acir_prover.prover.config import TEST_CONFIG
-    from tpu_acir_prover.prover.prove import ProvingKey as OracleKey
-    from tpu_acir_prover.prover.prove import prove as oracle_prove
-    from tpu_acir_prover.prover.serialization import serialize_proof
+    from tpu_acir_prover_torch.prover.config import TEST_CONFIG
     from tpu_acir_prover_torch.prover.prove import ProvingKey, prove
-    for name, cc, ext in _circuits():
-        want = serialize_proof(oracle_prove(OracleKey(cc, TEST_CONFIG, xp=np),
-                                            ext))
-        got = serialize_proof(prove(ProvingKey(cc, TEST_CONFIG, device="cuda"),
-                                    ext))
-        if got != want:
-            raise AssertionError(f"{name}: proof bytes differ from the numpy "
-                                 "oracle")
-        say(f"[parity] {name} n={cc.n}: {len(got)} proof bytes equal to the "
-            "JAX package's numpy prover")
+    from tpu_acir_prover_torch.prover.serialization import serialize_proof
+    from tpu_acir_prover_torch.prover.verify import verify
+    for name, cc, ext in _small_circuits():
+        want = serialize_proof(prove(ProvingKey(cc, TEST_CONFIG, device="cpu"),
+                                     ext))
+        pk = ProvingKey(cc, TEST_CONFIG, device="cuda")
+        proof = prove(pk, ext)
+        verify(pk.vk, proof)
+        if serialize_proof(proof) != want:
+            raise AssertionError(f"{name}: proof bytes on the card differ "
+                                 "from those on the CPU")
+        say(f"[parity] {name} n={cc.n}: {len(want)} proof bytes on the card "
+            "equal to the port's on the CPU (plain twins); verified")
 
 
 def phase_main_path(work):
     """The port's CLI on the ECDSA circuit; returns the kernels' launch
     counts over that run."""
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
-    import factories
-    from tpu_acir_prover.acir import codec, ir
-    from tpu_acir_prover.prover.compress import decompress_proof
-    from tpu_acir_prover.prover.config import STANDARD_CONFIG
-    from tpu_acir_prover.prover.serialization import (
+    from tpu_acir_prover_torch import api, cli
+    from tpu_acir_prover_torch.acir import codec, ir
+    from tpu_acir_prover_torch.kernels import poseidon as kp
+    from tpu_acir_prover_torch.prover.compress import (compress_proof,
+                                                       decompress_proof)
+    from tpu_acir_prover_torch.prover.config import STANDARD_CONFIG
+    from tpu_acir_prover_torch.prover.prove import prove
+    from tpu_acir_prover_torch.prover.serialization import (
         deserialize_compressed_proof, deserialize_vk,
         serialize_compressed_proof)
-    from tpu_acir_prover.prover.compress import compress_proof
-    from tpu_acir_prover.prover.verify import verify
-    from tpu_acir_prover.utils.timing import PhaseTimer
-    from tpu_acir_prover_torch import api, cli
-    from tpu_acir_prover_torch.kernels import poseidon as kp
-    from tpu_acir_prover_torch.prover.prove import prove
+    from tpu_acir_prover_torch.prover.verify import verify
+    from tpu_acir_prover_torch.utils import circuits
+    from tpu_acir_prover_torch.utils.timing import PhaseTimer
 
     prog_path = os.path.join(work, "ecdsa.json")
     wit_path = os.path.join(work, "ecdsa.gz")
     proof_path = os.path.join(work, "proof")
     vk_path = os.path.join(work, "vk")
-    prog, wm = factories.ecdsa_secp256k1()
+    prog, wm = circuits.ecdsa_secp256k1()
     codec.save_program_artifact(prog_path, prog)
     codec.save_witness_stack(wit_path, ir.WitnessStack([ir.StackItem(0, wm)]))
 
@@ -219,7 +244,8 @@ def phase_main_path(work):
     say(f"[main] ecdsa_secp256k1 n=2^{pk.compiled.log_n} "
         f"LDE=2^{pk.m.bit_length() - 1}: cli prove (proving key build "
         f"included) {cold_s:.3f} s, write_vk and verify ok; "
-        f"launches {launches}")
+        f"launches {launches} (two_to_one_level: "
+        f"{launches['two_to_one_level']})")
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"main path launched no {missing}")
@@ -235,7 +261,7 @@ def phase_main_path(work):
         verify(vk, decompress_proof(vk, deserialize_compressed_proof(
             bytes(bad))))
     except Exception as e:  # any failure is a rejection
-        say(f"[main] JAX package verifier: accepts the proof, rejects it with "
+        say(f"[main] port's verifier: accepts the proof, rejects it with "
             f"byte {len(bad) // 2} flipped ({type(e).__name__})")
     else:
         raise AssertionError("tampered proof was accepted")
@@ -255,7 +281,45 @@ def phase_main_path(work):
     say(f"[main] warm prove {warm_s:.3f} s ({phases}); peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
         f"launches {dict(kp.launches)}")
+    profile_proof(pk, ext)
     return launches
+
+
+def profile_proof(pk, ext):
+    """One warm proof under torch.profiler (device activity only): the
+    device time and count of all kernels and of the Poseidon2 kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_acir_prover_torch.prover.prove import prove
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prove(pk, ext)
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    total_us = total_n = 0
+    ours = {k: [0, 0.0] for k in POSEIDON_KERNELS}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        total_us += us
+        total_n += e.count
+        for k in POSEIDON_KERNELS:
+            if k in e.key:
+                ours[k][0] += e.count
+                ours[k][1] += us
+    if not total_n:
+        say("[profile] the profiler recorded no device activity: device time "
+            "not measured")
+        return
+    poseidon_ms = sum(t for _, t in ours.values()) / 1e3
+    per = ", ".join(f"{k} {n} x {t / 1e3:.3f} ms" for k, (n, t) in ours.items())
+    say(f"[profile] warm prove under the profiler {wall_s:.3f} s: "
+        f"{total_n} device operations, {total_us / 1e3:.1f} ms of device "
+        f"time; Poseidon2 kernels {poseidon_ms:.3f} ms ({per})")
 
 
 def main():

@@ -1,4 +1,5 @@
-"""The Poseidon2 CUDA kernels against their plain torch twins, on the card.
+"""The Poseidon2 CUDA kernels against their plain torch twins, on the card,
+bit for bit.
 
 Skips where torch.cuda.is_available() is false.  Imports no JAX, so it also
 runs on a machine without it:
@@ -6,19 +7,28 @@ runs on a machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
-from tpu_acir_prover.field.gl import P
 from tpu_acir_prover_torch.field import gl
 from tpu_acir_prover_torch.field import poseidon as plain
+from tpu_acir_prover_torch.field.gl import P
 from tpu_acir_prover_torch.kernels import poseidon as kp
+from tpu_acir_prover_torch.prover.merkle import merkle_levels
+
+EDGES = np.array([0, P - 1, 1 << 32, (1 << 32) - 1], dtype=np.uint64)
 
 
 def _rand_u64(shape, seed):
-    return np.random.default_rng(seed).integers(0, P, size=shape,
-                                                dtype=np.uint64)
+    """Canonical values from a seed, with the edge values mixed in."""
+    v = np.random.default_rng(seed).integers(0, P, size=shape,
+                                             dtype=np.uint64).reshape(-1)
+    k = min(v.size, 4 * EDGES.size)
+    v[:k] = np.tile(EDGES, 4)[:k]
+    return v.reshape(shape)
 
 
 @pytest.fixture
@@ -29,20 +39,60 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [4, 12, 17, 43])
+@pytest.mark.parametrize("c", [1, 4, 8, 9, 12, 17, 18, 43])
 def test_leaf_hash_kernel_matches_twin(cuda, c):
-    x = gl.from_u64(_rand_u64((4096 + 3, c), seed=c), cuda)
-    n0 = kp.launches["leaf_hash"]
-    got = kp.leaf_hash(x)
-    assert kp.launches["leaf_hash"] == n0 + 1
-    assert torch.equal(got, plain.hash_no_pad(x))
+    for rows in (1, 127, 4096 + 3):  # not multiples of the 128-row block
+        x = gl.from_u64(_rand_u64((rows, c), seed=c * rows), cuda)
+        n0 = kp.launches["leaf_hash"]
+        got = kp.leaf_hash(x)
+        assert kp.launches["leaf_hash"] == n0 + 1
+        assert torch.equal(got, plain.hash_no_pad(x)), (c, rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_tree(log_m):
+    """Leaves (2^log_m, 4) on the card and every level above them, by the
+    plain twin."""
+    leaf = gl.from_u64(_rand_u64((1 << log_m, 4), seed=log_m), "cuda")
+    return [leaf] + plain.two_to_one_levels(leaf, log_m)
+
+
+def _launches_per_level_run(log_m, n):
+    """Levels hashed by each launch of ``n`` levels above 2^log_m leaves:
+    up to LEVELS_PER_LAUNCH while the child level is wide, up to
+    NARROW_LEVELS from NARROW_CHILDREN children down."""
+    runs = []
+    while sum(runs) < n:
+        wide = (1 << (log_m - sum(runs))) > kp.NARROW_CHILDREN
+        runs.append(min(kp.LEVELS_PER_LAUNCH if wide else kp.NARROW_LEVELS,
+                        n - sum(runs)))
+    return runs
+
+
+# Every launch the wrapper can make: 2^1 .. 2^12 leaves take only narrow
+# launches (3 levels, and tails of 1 and 2); 2^16 .. 2^18 leaves start with
+# wide launches of 2 levels, and of 1 up to a cap of half the leaves.
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_m", list(range(1, 13)) + [16, 17, 18])
+def test_merkle_levels_kernel_matches_twin(cuda, log_m):
+    """Every tree to caps 1, 2, 16 and half its leaves, bit for bit, with
+    the launches the wrapper's schedule makes."""
+    want = _plain_tree(log_m)
+    for cap in (1, 2, 16, 1 << (log_m - 1)):
+        n = log_m - cap.bit_length() + 1
+        if n < 1:
+            continue
+        n0 = kp.launches["two_to_one_level"]
+        got = merkle_levels(want[0], cap)
+        assert kp.launches["two_to_one_level"] - n0 == \
+            len(_launches_per_level_run(log_m, n))
+        assert len(got) == n + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (log_m, cap)
 
 
 @pytest.mark.cuda
-def test_level_and_permute_kernels_match_twins(cuda):
-    child = gl.from_u64(_rand_u64((2 * 4099, 4), seed=9), cuda)
-    assert torch.equal(kp.two_to_one_level(child),
-                       plain.two_to_one(child[0::2], child[1::2]))
+def test_permute_kernel_matches_twin(cuda):
     st = gl.from_u64(_rand_u64((5000, 12), seed=10), cuda)
     assert torch.equal(kp.permute(st), plain.permute(st))
     with pytest.raises(ValueError):

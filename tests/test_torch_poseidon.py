@@ -70,8 +70,13 @@ def test_two_to_one_level_matches_pallas_interpret():
                                    tile=128, interpret=True)
     # child level (2N, 4): children 2i and 2i+1 are left i and right i
     child = np.stack([left.T, right.T], axis=1).reshape(512, 4)
-    got = kp.two_to_one_level(gl.from_u64(child, "cpu"))
-    assert torch.equal(got, _from_jax(want))
+    got = kp.two_to_one_levels(gl.from_u64(child, "cpu"), 2)
+    assert torch.equal(got[0], _from_jax(want))
+    # the next level up: parents of Pallas level entries 2i and 2i+1
+    want2 = pallas.two_to_one_level((want[0][:, 0::2], want[1][:, 0::2]),
+                                    (want[0][:, 1::2], want[1][:, 1::2]),
+                                    tile=128, interpret=True)
+    assert torch.equal(got[1], _from_jax(want2))
 
 
 def test_two_to_one_matches_ints():
@@ -88,13 +93,13 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
     x = gl.from_u64(_rand_u64((4, 12), seed=3), "cpu")
     kp.permute(x)
     kp.leaf_hash(x)
-    kp.two_to_one_level(x[:, :4])
+    kp.two_to_one_levels(x[:, :4], 2)
     assert kp.launches == before  # CPU tensors run the plain twins
     with pytest.raises(TypeError):
         kp.permute(x.to(torch.int32))
     with pytest.raises(ValueError):
         kp.permute(x[:, :8])
     with pytest.raises(ValueError):
-        kp.two_to_one_level(x[:3, :4])
+        kp.two_to_one_levels(x[:3, :4], 1)
     with pytest.raises(ValueError):
         kp.leaf_hash(x.to("meta"))

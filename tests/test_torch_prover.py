@@ -152,12 +152,12 @@ def test_cuda_device_raises_without_a_card(tmp_path):
 _JAX_FREE = r"""
 import sys
 sys.modules["jax"] = None
-sys.path.insert(0, "tests")
-import factories
-from tpu_acir_prover.acir import codec, ir
-from tpu_acir_prover.prover.config import TEST_CONFIG
+sys.modules["tpu_acir_prover"] = None
 from tpu_acir_prover_torch import api
-prog, wm = factories.fibonacci()
+from tpu_acir_prover_torch.acir import codec, ir
+from tpu_acir_prover_torch.prover.config import TEST_CONFIG
+from tpu_acir_prover_torch.utils import circuits
+prog, wm = circuits.fibonacci()
 codec.save_program_artifact(sys.argv[1] + "/prog.json", prog)
 codec.save_witness_stack(sys.argv[1] + "/w.gz",
                          ir.WitnessStack([ir.StackItem(0, wm)]))
@@ -166,8 +166,8 @@ api.prove_file(sys.argv[1] + "/prog.json", sys.argv[1] + "/w.gz",
 api.write_vk_file(sys.argv[1] + "/prog.json", sys.argv[1] + "/vk",
                   TEST_CONFIG, device="cpu")
 api.verify_file(sys.argv[1] + "/vk", sys.argv[1] + "/proof")
-loaded = [k for k, v in sys.modules.items()
-          if v is not None and k.split(".")[0] in ("jax", "jaxlib")]
+loaded = [k for k, v in sys.modules.items() if v is not None and
+          k.split(".")[0] in ("jax", "jaxlib", "tpu_acir_prover")]
 assert not loaded, loaded
 print("JAX-FREE OK")
 """

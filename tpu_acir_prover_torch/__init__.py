@@ -2,7 +2,8 @@
 
 A field element is one ``int64`` tensor element holding the canonical u64
 bits of a Goldilocks value; an extension element is a ``(re, im)`` pair of
-such tensors.  Host-only modules (ACIR codec, circuit compiler, transcript,
-serialization, verifier) are imported from ``tpu_acir_prover``, which needs
-no JAX for them.
+such tensors.  The host modules (ACIR codec and translator, circuit
+compiler, native witness core, transcript, serialization, compression,
+verifier) are copies of the JAX package's, under the same module names; the
+port imports nothing of ``tpu_acir_prover`` and nothing of JAX.
 """

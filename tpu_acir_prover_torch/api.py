@@ -12,17 +12,16 @@ import hashlib
 import struct
 from typing import Dict, Tuple
 
-from tpu_acir_prover.acir import codec
-from tpu_acir_prover.acir.translator import AcirTranslator, translate_program
-from tpu_acir_prover.circuit.compile import compile_circuit
-from tpu_acir_prover.prover.compress import compress_proof, decompress_proof
-from tpu_acir_prover.prover.config import ProofConfig, STANDARD_CONFIG
-from tpu_acir_prover.prover.serialization import (
+from .acir import codec
+from .acir.translator import AcirTranslator, translate_program
+from .circuit.compile import compile_circuit
+from .prover.compress import compress_proof, decompress_proof
+from .prover.config import ProofConfig, STANDARD_CONFIG
+from .prover.prove import ProvingKey, prove, resolve_device
+from .prover.serialization import (
     COMPRESSED_PROOF_MAGIC, deserialize_compressed_proof, deserialize_proof,
     deserialize_vk, serialize_compressed_proof, serialize_proof, serialize_vk)
-from tpu_acir_prover.prover.verify import verify
-
-from .prover.prove import ProvingKey, prove, resolve_device
+from .prover.verify import verify
 
 _CACHE: Dict[Tuple[bytes, ProofConfig, str],
              Tuple[AcirTranslator, ProvingKey]] = {}

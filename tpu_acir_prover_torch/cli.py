@@ -16,9 +16,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from tpu_acir_prover.prover.config import STANDARD_CONFIG, TEST_CONFIG
-
 from . import api
+from .prover.config import STANDARD_CONFIG, TEST_CONFIG
 
 
 def _config(args):

@@ -1,30 +1,48 @@
 // Poseidon2 width 12 over Goldilocks for Hopper (sm_90a): the Merkle leaf
-// sponge, one Merkle level, and the bare permutation.
+// sponge, the Merkle levels of a subtree, and the bare permutation.
 //
 // Replaces the Pallas kernels in tpu_acir_prover/kernels/poseidon_pallas.py:
-//   leaf_hash         <- _leaf_kernel / leaf_hash
-//   two_to_one_level  <- _two_to_one_kernel / two_to_one_level
-//   permute           <- permute_tile (no pallas_call of its own there; here
-//                        it serves the proof-of-work grind)
+//   leaf_hash      <- _leaf_kernel / leaf_hash
+//   merkle_levels  <- _two_to_one_kernel / two_to_one_level, several levels
+//                     per launch (the subtree design that module's docstring
+//                     names merkle_bulk)
+//   permute        <- permute_tile (no pallas_call of its own there; here it
+//                     serves the proof-of-work grind)
 //
-// Design: one thread owns one 12-lane state, held in registers as u64;
-// the rounds are unrolled so every lane index is a compile-time constant;
-// the round constants sit in __constant__ memory, read uniformly by a
-// warp.  Nothing carries over between blocks (the Pallas grid's tiles and
-// SMEM scalars have no counterpart here).
+// What bounds it: 32-bit multiply-adds.  A permutation is 736 Goldilocks
+// products (8 external rounds x 12 S-boxes x 4 for x^7, and 22 internal
+// rounds x (4 + 12)), each a 64x64->128 product of four 32x32->64 partial
+// products (8 32-bit multiply-adds), plus its reduction.  The linear layers
+// are adds.  Memory is far below that: a leaf row of C values is read once
+// and 4 values are written.
 //
-// What bounds it: 64-bit integer multiplies.  A permutation is about 500
-// Goldilocks multiplies (8 external rounds x 12 lanes x 4 for the x^7
-// S-box, 22 internal rounds x (4 + 12)), each a 64x64->128 product
-// (a * b and __umul64hi, emulated by the 32-bit IMAD pipe) plus the
-// reduction.  The external matrix is the paper's add chain, with no
-// multiplies.  Memory traffic is small beside that: a leaf row of C values
-// is read once and 4 values are written.
-//
-// Simple first: in leaf_hash each thread reads its own row, so a warp's
-// loads are strided by C * 8 bytes and not coalesced; staging rows through
-// shared memory, and a kernel that hashes whole subtrees in shared memory,
-// are left for later work.
+// Design for that bound:
+// - one thread owns one 12-lane state in registers; lane indices are
+//   compile-time constants, round constants sit in __constant__ memory;
+// - the 128-bit product is one PTX carry chain (mul.lo/hi, mad.lo.cc,
+//   madc.hi.cc) and its reduction is branch-free (sub.cc/subc, add.cc/addc);
+// - lane values stay in [0, 2^64), not canonical, between operations, and
+//   are made canonical once, when a digest or a state is written;
+// - the linear layers add in 96 bits (a 64-bit word and a 32-bit carry
+//   count) and reduce each output once; the internal layer adds its 12-lane
+//   sum into the 128-bit diagonal product before its one reduction;
+// - leaf_hash stages each block's rows in shared memory, one rate chunk at
+//   a time and double-buffered, with cp.async, so a warp's loads are runs of
+//   contiguous words and the next chunk lands while the current one is
+//   permuted.  The copies are 8 bytes: a row of odd width starts on an
+//   8-byte boundary only;
+// - merkle_levels hashes `levels` levels per launch: each block owns a run
+//   of whole subtrees of 2^levels children (enough of them to give every
+//   thread a parent at the first level), reads the run once from device
+//   memory, keeps the levels above in shared memory (ping-pong buffers, a
+//   barrier between levels) and writes every level to its own output;
+// - a narrow level (a few thousand parents or fewer: too few warps to fill
+//   the card) is bound by the latency of one permutation, not by issue.
+//   There merkle_levels spreads each permutation over a quad of four
+//   threads: thread q holds lanes q, 4 + q and 8 + q, so the circulant sum
+//   of the external matrix is local, its M4 rows take the quad's four values
+//   by shuffles, and the internal sum is a quad all-reduce.  A thread then
+//   issues about 8k instructions per permutation instead of about 22k.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() so the caller can raise.
@@ -34,41 +52,177 @@
 
 namespace {
 
-constexpr uint64_t P = 0xFFFFFFFF00000001ull;  // 2^64 - 2^32 + 1
-constexpr uint64_t EPS = 0xFFFFFFFFull;        // 2^64 mod p
+constexpr uint64_t EPS = 0xFFFFFFFFull;  // 2^64 mod p, p = 2^64 - 2^32 + 1
 constexpr int WIDTH = 12;
 constexpr int RATE = 8;
 constexpr int DIGEST = 4;
 constexpr int EXTERNAL_ROUNDS = 8;
 constexpr int INTERNAL_ROUNDS = 22;
-constexpr int THREADS = 128;
+constexpr int THREADS = 128;            // leaf_hash and permute blocks
+constexpr int STAGE_STRIDE = RATE + 1;  // padded row of a staged chunk
+constexpr int MAX_LEVELS = 3;           // merkle_levels: levels per launch
+constexpr int LEVEL_THREADS = 256;      // one thread per parent
+constexpr int QUAD_WARP_PARENTS = 8;    // four threads per parent: a warp
 
 __constant__ uint64_t c_ext[EXTERNAL_ROUNDS][WIDTH];
 __constant__ uint64_t c_int[INTERNAL_ROUNDS];
 __constant__ uint64_t c_dm1[WIDTH];
+// M4's rows, for the quad permutation (thread q forms row q)
+__constant__ uint32_t c_m4[4][4] = {{5, 7, 1, 3}, {4, 6, 1, 1}, {1, 3, 5, 7},
+                                    {1, 1, 4, 6}};
 
+// A 96-bit sum lo + hi * 2^64 of lane values, reduced once at the end.
+struct Acc {
+  uint64_t lo;
+  uint32_t hi;
+};
+
+// x mod p for x in [0, 2^64): x - p = x + EPS (mod 2^64) wraps iff x >= p.
 __device__ __forceinline__ uint64_t canon(uint64_t x) {
-  return x >= P ? x - P : x;
+  uint64_t y = x + EPS;
+  return y < x ? y : x;
 }
 
-__device__ __forceinline__ uint64_t gl_add(uint64_t a, uint64_t b) {
-  uint64_t s = a + b;
-  if (s < a) s += EPS;  // carry out of 2^64 is worth 2^32 - 1
-  return canon(s);
-}
+// The reduction of a 128-bit value (t3:t2:t1:t0) into [0, 2^64), using
+// 2^64 = 2^32 - 1 and 2^96 = -1 (mod p): r = (t1:t0) - t3 + t2 * (2^32 - 1).
+// A borrow out of the subtraction is worth -(2^32 - 1), a carry out of the
+// addition +(2^32 - 1); neither correction can wrap again.
+#define P2_REDUCE128                         \
+  "sub.cc.u32 t0, t0, t3;\n\t"               \
+  "subc.cc.u32 t1, t1, 0;\n\t"               \
+  "subc.u32 c, 0, 0;\n\t"                    \
+  "sub.cc.u32 t0, t0, c;\n\t"                \
+  "subc.u32 t1, t1, 0;\n\t"                  \
+  "sub.cc.u32 e0, 0, t2;\n\t"                \
+  "subc.u32 e1, t2, 0;\n\t"                  \
+  "add.cc.u32 t0, t0, e0;\n\t"               \
+  "addc.cc.u32 t1, t1, e1;\n\t"              \
+  "addc.u32 c, 0, 0;\n\t"                    \
+  "sub.u32 c, 0, c;\n\t"                     \
+  "add.cc.u32 t0, t0, c;\n\t"                \
+  "addc.u32 t1, t1, 0;\n\t"
 
-// 2^64 = 2^32 - 1 and 2^96 = -1 (mod p); same steps as _reduce128_64 in
-// tpu_acir_prover/field/gl.py.
+// (t3:t2:t1:t0) = a * b with a = (a1:a0), b = (b1:b0).
+#define P2_MUL128                            \
+  "mov.b64 {a0, a1}, %1;\n\t"                \
+  "mov.b64 {b0, b1}, %2;\n\t"                \
+  "mul.lo.u32 t0, a0, b0;\n\t"               \
+  "mul.hi.u32 t1, a0, b0;\n\t"               \
+  "mul.lo.u32 t2, a1, b1;\n\t"               \
+  "mul.hi.u32 t3, a1, b1;\n\t"               \
+  "mad.lo.cc.u32 t1, a0, b1, t1;\n\t"        \
+  "madc.hi.cc.u32 t2, a0, b1, t2;\n\t"       \
+  "addc.u32 t3, t3, 0;\n\t"                  \
+  "mad.lo.cc.u32 t1, a1, b0, t1;\n\t"        \
+  "madc.hi.cc.u32 t2, a1, b0, t2;\n\t"       \
+  "addc.u32 t3, t3, 0;\n\t"
+
+// a * b mod p, in [0, 2^64).
 __device__ __forceinline__ uint64_t gl_mul(uint64_t a, uint64_t b) {
-  uint64_t lo = a * b;
-  uint64_t hi = __umul64hi(a, b);
-  uint64_t x3 = hi >> 32;
-  uint64_t x2 = hi & EPS;
-  uint64_t t = lo - x3;
-  if (lo < x3) t -= EPS;
-  uint64_t r = t + x2 * EPS;
-  if (r < t) r += EPS;
-  return canon(r);
+  uint64_t r;
+  asm("{\n\t"
+      ".reg .u32 a0, a1, b0, b1, t0, t1, t2, t3, e0, e1, c;\n\t"
+      P2_MUL128
+      P2_REDUCE128
+      "mov.b64 %0, {t0, t1};\n\t"
+      "}"
+      : "=l"(r) : "l"(a), "l"(b));
+  return r;
+}
+
+// a * b + s mod p, in [0, 2^64), for b < p: then a * b < 2^128 - 2^96 + 2^64
+// and a * b + s < 2^128 for any 96-bit sum s of 12 lanes.
+__device__ __forceinline__ uint64_t gl_mul_add(uint64_t a, uint64_t b, Acc s) {
+  uint64_t r;
+  asm("{\n\t"
+      ".reg .u32 a0, a1, b0, b1, t0, t1, t2, t3, e0, e1, c, s0, s1;\n\t"
+      P2_MUL128
+      "mov.b64 {s0, s1}, %3;\n\t"
+      "add.cc.u32 t0, t0, s0;\n\t"
+      "addc.cc.u32 t1, t1, s1;\n\t"
+      "addc.cc.u32 t2, t2, %4;\n\t"
+      "addc.u32 t3, t3, 0;\n\t"
+      P2_REDUCE128
+      "mov.b64 %0, {t0, t1};\n\t"
+      "}"
+      : "=l"(r) : "l"(a), "l"(b), "l"(s.lo), "r"(s.hi));
+  return r;
+}
+
+// a + c mod p for a in [0, 2^64) and a round constant c < p: one carry
+// correction suffices, since a + c - 2^64 + (2^32 - 1) < 2^64.
+__device__ __forceinline__ uint64_t gl_add_rc(uint64_t a, uint64_t c) {
+  uint64_t r;
+  asm("{\n\t"
+      ".reg .u32 a0, a1, b0, b1, k;\n\t"
+      "mov.b64 {a0, a1}, %1;\n\t"
+      "mov.b64 {b0, b1}, %2;\n\t"
+      "add.cc.u32 a0, a0, b0;\n\t"
+      "addc.cc.u32 a1, a1, b1;\n\t"
+      "addc.u32 k, 0, 0;\n\t"
+      "sub.u32 k, 0, k;\n\t"
+      "add.cc.u32 a0, a0, k;\n\t"
+      "addc.u32 a1, a1, 0;\n\t"
+      "mov.b64 %0, {a0, a1};\n\t"
+      "}"
+      : "=l"(r) : "l"(a), "l"(c));
+  return r;
+}
+
+__device__ __forceinline__ Acc acc_add(Acc a, Acc b) {
+  Acc r;
+  asm("{\n\t"
+      ".reg .u32 a0, a1, b0, b1;\n\t"
+      "mov.b64 {a0, a1}, %2;\n\t"
+      "mov.b64 {b0, b1}, %4;\n\t"
+      "add.cc.u32 a0, a0, b0;\n\t"
+      "addc.cc.u32 a1, a1, b1;\n\t"
+      "addc.u32 %1, %3, %5;\n\t"
+      "mov.b64 %0, {a0, a1};\n\t"
+      "}"
+      : "=l"(r.lo), "=r"(r.hi) : "l"(a.lo), "r"(a.hi), "l"(b.lo), "r"(b.hi));
+  return r;
+}
+
+__device__ __forceinline__ Acc acc(uint64_t x) { return Acc{x, 0u}; }
+
+// a + y * m for a small m: a 96-bit multiply-accumulate.
+__device__ __forceinline__ Acc acc_mad_small(Acc a, uint64_t y, uint32_t m) {
+  Acc r;
+  asm("{\n\t"
+      ".reg .u32 y0, y1, l0, l1, h;\n\t"
+      "mov.b64 {y0, y1}, %3;\n\t"
+      "mov.b64 {l0, l1}, %2;\n\t"
+      "mad.lo.cc.u32 l0, y0, %4, l0;\n\t"
+      "madc.hi.cc.u32 l1, y0, %4, l1;\n\t"
+      "addc.u32 h, %5, 0;\n\t"
+      "mad.lo.cc.u32 l1, y1, %4, l1;\n\t"
+      "madc.hi.u32 h, y1, %4, h;\n\t"
+      "mov.b64 %0, {l0, l1};\n\t"
+      "mov.b32 %1, h;\n\t"
+      "}"
+      : "=l"(r.lo), "=r"(r.hi) : "l"(a.lo), "l"(y), "r"(m), "r"(a.hi));
+  return r;
+}
+
+// lo + hi * 2^64 mod p, in [0, 2^64): hi * 2^64 = hi * (2^32 - 1).
+__device__ __forceinline__ uint64_t reduce96(Acc a) {
+  uint64_t r;
+  asm("{\n\t"
+      ".reg .u32 l0, l1, e0, e1, c;\n\t"
+      "mov.b64 {l0, l1}, %1;\n\t"
+      "sub.cc.u32 e0, 0, %2;\n\t"
+      "subc.u32 e1, %2, 0;\n\t"
+      "add.cc.u32 l0, l0, e0;\n\t"
+      "addc.cc.u32 l1, l1, e1;\n\t"
+      "addc.u32 c, 0, 0;\n\t"
+      "sub.u32 c, 0, c;\n\t"
+      "add.cc.u32 l0, l0, c;\n\t"
+      "addc.u32 l1, l1, 0;\n\t"
+      "mov.b64 %0, {l0, l1};\n\t"
+      "}"
+      : "=l"(r) : "l"(a.lo), "r"(a.hi));
+  return r;
 }
 
 __device__ __forceinline__ uint64_t sbox(uint64_t x) {
@@ -78,100 +232,289 @@ __device__ __forceinline__ uint64_t sbox(uint64_t x) {
   return gl_mul(x6, x);
 }
 
-// M4 = [[5,7,1,3],[4,6,1,1],[1,3,5,7],[1,1,4,6]] by the paper's add chain.
-__device__ __forceinline__ void m4(uint64_t& x0, uint64_t& x1, uint64_t& x2,
-                                   uint64_t& x3) {
-  uint64_t t0 = gl_add(x0, x1);
-  uint64_t t1 = gl_add(x2, x3);
-  uint64_t t2 = gl_add(gl_add(x1, x1), t1);
-  uint64_t t3 = gl_add(gl_add(x3, x3), t0);
-  uint64_t d1 = gl_add(t1, t1);
-  uint64_t t4 = gl_add(gl_add(d1, d1), t3);
-  uint64_t d0 = gl_add(t0, t0);
-  uint64_t t5 = gl_add(gl_add(d0, d0), t2);
-  x0 = gl_add(t3, t5);
-  x1 = t5;
-  x2 = gl_add(t2, t4);
-  x3 = t4;
+// M4 = [[5,7,1,3],[4,6,1,1],[1,3,5,7],[1,1,4,6]] by the paper's add chain,
+// in 96 bits (outputs < 16 * 2^64).
+__device__ __forceinline__ void m4(const uint64_t* x, Acc* v) {
+  Acc t0 = acc_add(acc(x[0]), acc(x[1]));
+  Acc t1 = acc_add(acc(x[2]), acc(x[3]));
+  Acc t2 = acc_add(acc_add(acc(x[1]), acc(x[1])), t1);
+  Acc t3 = acc_add(acc_add(acc(x[3]), acc(x[3])), t0);
+  Acc d1 = acc_add(t1, t1);
+  Acc t4 = acc_add(acc_add(d1, d1), t3);
+  Acc d0 = acc_add(t0, t0);
+  Acc t5 = acc_add(acc_add(d0, d0), t2);
+  v[0] = acc_add(t3, t5);
+  v[1] = t5;
+  v[2] = acc_add(t2, t4);
+  v[3] = t4;
 }
 
-// M_E = circ(2*M4, M4, M4).
+// M_E = circ(2*M4, M4, M4); outputs < 64 * 2^64 before their one reduction.
 __device__ __forceinline__ void external_matrix(uint64_t s[WIDTH]) {
+  Acc v[WIDTH];
 #pragma unroll
-  for (int a = 0; a < 3; ++a) m4(s[4 * a], s[4 * a + 1], s[4 * a + 2], s[4 * a + 3]);
+  for (int a = 0; a < 3; ++a) m4(s + 4 * a, v + 4 * a);
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    uint64_t tot = gl_add(gl_add(s[r], s[4 + r]), s[8 + r]);
-    s[r] = gl_add(s[r], tot);
-    s[4 + r] = gl_add(s[4 + r], tot);
-    s[8 + r] = gl_add(s[8 + r], tot);
+    Acc tot = acc_add(acc_add(v[r], v[4 + r]), v[8 + r]);
+    s[r] = reduce96(acc_add(v[r], tot));
+    s[4 + r] = reduce96(acc_add(v[4 + r], tot));
+    s[8 + r] = reduce96(acc_add(v[8 + r], tot));
   }
 }
 
 __device__ __forceinline__ void external_round(uint64_t s[WIDTH], int r) {
 #pragma unroll
-  for (int i = 0; i < WIDTH; ++i) s[i] = sbox(gl_add(s[i], c_ext[r][i]));
+  for (int i = 0; i < WIDTH; ++i) s[i] = sbox(gl_add_rc(s[i], c_ext[r][i]));
   external_matrix(s);
 }
 
-// M_I = all-ones + diag(mu - 1): out_i = sum_j x_j + (mu_i - 1) * x_i.
+// M_I = all-ones + diag(mu - 1): out_i = (mu_i - 1) * x_i + sum_j x_j, the
+// sum kept in 96 bits (< 12 * 2^64) and added before the one reduction.
 __device__ __forceinline__ void internal_round(uint64_t s[WIDTH], int r) {
-  s[0] = sbox(gl_add(s[0], c_int[r]));
-  uint64_t sum = s[0];
+  s[0] = sbox(gl_add_rc(s[0], c_int[r]));
+  Acc sum = acc(s[0]);
 #pragma unroll
-  for (int i = 1; i < WIDTH; ++i) sum = gl_add(sum, s[i]);
+  for (int i = 1; i < WIDTH; ++i) sum = acc_add(sum, acc(s[i]));
 #pragma unroll
-  for (int i = 0; i < WIDTH; ++i) s[i] = gl_add(gl_mul(s[i], c_dm1[i]), sum);
+  for (int i = 0; i < WIDTH; ++i) s[i] = gl_mul_add(s[i], c_dm1[i], sum);
 }
 
+// The rounds loop at run time (round constants indexed by a uniform
+// counter) to keep the kernels' code small; lanes are unrolled.
 __device__ __forceinline__ void permute(uint64_t s[WIDTH]) {
   external_matrix(s);
-#pragma unroll
+#pragma unroll 1
   for (int r = 0; r < EXTERNAL_ROUNDS / 2; ++r) external_round(s, r);
-#pragma unroll
+#pragma unroll 1
   for (int r = 0; r < INTERNAL_ROUNDS; ++r) internal_round(s, r);
+#pragma unroll 1
+  for (int r = EXTERNAL_ROUNDS / 2; r < EXTERNAL_ROUNDS; ++r)
+    external_round(s, r);
+}
+
+// ---- one permutation on a quad of four threads (narrow Merkle levels) ----
+
+struct Quad {
+  unsigned mask;  // the warp's threads (all of a block smaller than a warp)
+  int base;       // warp lane of the quad's thread 0
+  int q;          // this thread's place in the quad
+  uint32_t m4[4]; // row q of M4
+  uint64_t dm1[3];  // mu - 1 of lanes q, 4 + q, 8 + q
+};
+
+__device__ __forceinline__ Quad make_quad() {
+  Quad d;
+  d.mask = blockDim.x >= 32 ? 0xFFFFFFFFu : (1u << blockDim.x) - 1;
+  d.q = threadIdx.x & 3;
+  d.base = (threadIdx.x & 31) & ~3;
 #pragma unroll
-  for (int r = EXTERNAL_ROUNDS / 2; r < EXTERNAL_ROUNDS; ++r) external_round(s, r);
+  for (int j = 0; j < 4; ++j) d.m4[j] = c_m4[d.q][j];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) d.dm1[a] = c_dm1[4 * a + d.q];
+  return d;
+}
+
+// x[a] is lane 4a + q.  Row q of M4 on block a takes the block's four lanes
+// from the quad; the circulant sum over blocks is this thread's own.
+__device__ __forceinline__ void quad_external_matrix(uint64_t x[3],
+                                                     const Quad& d) {
+  Acc v[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    Acc t = acc(0);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      t = acc_mad_small(t, __shfl_sync(d.mask, x[a], d.base + j), d.m4[j]);
+    v[a] = t;
+  }
+  Acc tot = acc_add(acc_add(v[0], v[1]), v[2]);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) x[a] = reduce96(acc_add(v[a], tot));
+}
+
+__device__ __forceinline__ void quad_external_round(uint64_t x[3],
+                                                    const Quad& d, int r) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    x[a] = sbox(gl_add_rc(x[a], c_ext[r][4 * a + d.q]));
+  quad_external_matrix(x, d);
+}
+
+__device__ __forceinline__ Acc shfl_xor_acc(Acc s, int m, unsigned mask) {
+  return Acc{__shfl_xor_sync(mask, s.lo, m), __shfl_xor_sync(mask, s.hi, m)};
+}
+
+__device__ __forceinline__ void quad_internal_round(uint64_t x[3],
+                                                    const Quad& d, int r) {
+  if (d.q == 0) x[0] = sbox(gl_add_rc(x[0], c_int[r]));
+  Acc sum = acc_add(acc_add(acc(x[0]), acc(x[1])), acc(x[2]));
+  sum = acc_add(sum, shfl_xor_acc(sum, 1, d.mask));
+  sum = acc_add(sum, shfl_xor_acc(sum, 2, d.mask));
+#pragma unroll
+  for (int a = 0; a < 3; ++a) x[a] = gl_mul_add(x[a], d.dm1[a], sum);
+}
+
+__device__ __forceinline__ void permute_quad(uint64_t x[3], const Quad& d) {
+  quad_external_matrix(x, d);
+#pragma unroll 1
+  for (int r = 0; r < EXTERNAL_ROUNDS / 2; ++r) quad_external_round(x, d, r);
+#pragma unroll 1
+  for (int r = 0; r < INTERNAL_ROUNDS; ++r) quad_internal_round(x, d, r);
+#pragma unroll 1
+  for (int r = EXTERNAL_ROUNDS / 2; r < EXTERNAL_ROUNDS; ++r)
+    quad_external_round(x, d, r);
+}
+
+__device__ __forceinline__ void cp_async8(uint64_t* smem, const uint64_t* gmem) {
+  unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// Starts the copy of columns [off, off + k) of the block's rows into buf;
+// a warp's 32 copies are runs of k contiguous words.
+__device__ __forceinline__ void stage_chunk(uint64_t* buf,
+                                            const uint64_t* __restrict__ in,
+                                            int64_t row0, int64_t rows,
+                                            int cols, int off, int k) {
+  for (int e = threadIdx.x; e < THREADS * k; e += THREADS) {
+    int r = e / k;
+    int j = e - r * k;
+    if (row0 + r < rows)
+      cp_async8(&buf[r * STAGE_STRIDE + j], in + (row0 + r) * cols + off + j);
+  }
+  cp_async_commit();
 }
 
 // (rows, cols) row-major -> (rows, 4): overwrite-mode sponge, no padding.
-__global__ void leaf_hash_kernel(const uint64_t* __restrict__ in, int64_t rows,
-                                 int cols, uint64_t* __restrict__ out) {
-  int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= rows) return;
-  const uint64_t* src = in + row * cols;
+// The rows reach the threads through shared memory.
+__global__ void __launch_bounds__(THREADS)
+leaf_hash_kernel(const uint64_t* __restrict__ in, int64_t rows, int cols,
+                 uint64_t* __restrict__ out) {
+  __shared__ uint64_t buf[2][THREADS * STAGE_STRIDE];
+  const int64_t row0 = (int64_t)blockIdx.x * THREADS;
+  const int64_t row = row0 + threadIdx.x;
   uint64_t s[WIDTH];
 #pragma unroll
   for (int i = 0; i < WIDTH; ++i) s[i] = 0;
-  for (int off = 0; off < cols; off += RATE) {
-    int k = min(RATE, cols - off);
+  const int nchunks = (cols + RATE - 1) / RATE;
+  stage_chunk(buf[0], in, row0, rows, cols, 0, min(RATE, cols));
+  for (int c = 0; c < nchunks; ++c) {
+    const int off = c * RATE;
+    const int k = min(RATE, cols - off);
+    // chunk c has landed for every thread, and every thread is done with
+    // the buffer that chunk c + 1 goes into
+    cp_async_wait_all();
+    __syncthreads();
+    if (c + 1 < nchunks)
+      stage_chunk(buf[(c + 1) & 1], in, row0, rows, cols, off + RATE,
+                  min(RATE, cols - off - RATE));
+    const uint64_t* src = &buf[c & 1][threadIdx.x * STAGE_STRIDE];
 #pragma unroll
     for (int j = 0; j < RATE; ++j)
-      if (j < k) s[j] = src[off + j];
+      if (j < k) s[j] = src[j];
     permute(s);
   }
+  if (row < rows) {
 #pragma unroll
-  for (int j = 0; j < DIGEST; ++j) out[row * DIGEST + j] = s[j];
+    for (int j = 0; j < DIGEST; ++j) out[row * DIGEST + j] = canon(s[j]);
+  }
 }
 
-// child level (2n, 4) -> parent level (n, 4); parent i = H(child 2i, 2i+1).
-__global__ void two_to_one_kernel(const uint64_t* __restrict__ child,
-                                  int64_t n, uint64_t* __restrict__ out) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+struct LevelOutputs {
+  uint64_t* level[MAX_LEVELS];
+};
+
+// Compresses the digests at in[8p .. 8p + 8) (children 2p, 2p + 1) and
+// writes the parent to out_global[g] and, when out_shared is set, to
+// out_shared[p].
+__device__ __forceinline__ void compress_pair(const uint64_t* in, int p,
+                                              int64_t g, uint64_t* out_global,
+                                              uint64_t* out_shared) {
   uint64_t s[WIDTH];
+  const ulonglong2* src = reinterpret_cast<const ulonglong2*>(in + 8 * (int64_t)p);
 #pragma unroll
-  for (int j = 0; j < 2 * DIGEST; ++j) s[j] = child[i * 2 * DIGEST + j];
+  for (int q = 0; q < 4; ++q) {
+    ulonglong2 v = src[q];
+    s[2 * q] = v.x;
+    s[2 * q + 1] = v.y;
+  }
 #pragma unroll
   for (int j = 2 * DIGEST; j < WIDTH; ++j) s[j] = 0;
   permute(s);
 #pragma unroll
-  for (int j = 0; j < DIGEST; ++j) out[i * DIGEST + j] = s[j];
+  for (int j = 0; j < DIGEST; ++j) {
+    uint64_t d = canon(s[j]);
+    out_global[g * DIGEST + j] = d;
+    if (out_shared) out_shared[p * DIGEST + j] = d;
+  }
+}
+
+// The np parents of a level on quads: quad k takes parents k, k + nquads,
+// ...  Every quad runs every round, an idle one on zeros, so that the
+// shuffles see whole warps.
+__device__ __forceinline__ void compress_level_quad(const uint64_t* in, int np,
+                                                    int64_t g0,
+                                                    uint64_t* out_global,
+                                                    uint64_t* out_shared) {
+  const Quad d = make_quad();
+  const int nquads = blockDim.x >> 2;
+  for (int p0 = 0; p0 < np; p0 += nquads) {
+    const int p = p0 + (threadIdx.x >> 2);
+    const bool active = p < np;
+    uint64_t x[3];
+    x[0] = active ? in[8 * (int64_t)p + d.q] : 0;      // child 2p
+    x[1] = active ? in[8 * (int64_t)p + 4 + d.q] : 0;  // child 2p + 1
+    x[2] = 0;
+    permute_quad(x, d);
+    if (active) {
+      const uint64_t v = canon(x[0]);
+      out_global[(g0 + p) * DIGEST + d.q] = v;
+      if (out_shared) out_shared[p * DIGEST + d.q] = v;
+    }
+  }
+}
+
+// `levels` Merkle levels above a child level: block b owns children
+// [b * 2^span, (b + 1) * 2^span), span >= levels, and writes their
+// 2^(span - l) parents at level l to out.level[l - 1].  Level 1 reads the
+// children from device memory; level l > 1 reads level l - 1 from shared
+// memory.  kQuad hashes each parent on a quad of threads.
+template <bool kQuad>
+__global__ void __launch_bounds__(kQuad ? 4 * QUAD_WARP_PARENTS : LEVEL_THREADS)
+merkle_levels_kernel(const uint64_t* __restrict__ child, int levels, int span,
+                     LevelOutputs out) {
+  extern __shared__ __align__(16) uint64_t smem[];
+  // level l is kept in buf[(l - 1) & 1]: 2^(span-1) and 2^(span-2) digests
+  uint64_t* buf[2] = {smem, smem + ((int64_t)DIGEST << (span - 1))};
+  const uint64_t* run = child + ((int64_t)blockIdx.x << span) * DIGEST;
+  for (int l = 1; l <= levels; ++l) {
+    if (l > 1) __syncthreads();
+    const int np = 1 << (span - l);
+    const uint64_t* in = l == 1 ? run : buf[l & 1];
+    uint64_t* keep = l < levels ? buf[(l - 1) & 1] : nullptr;
+    const int64_t g0 = (int64_t)blockIdx.x << (span - l);
+    if (kQuad)
+      compress_level_quad(in, np, g0, out.level[l - 1], keep);
+    else
+      for (int p = threadIdx.x; p < np; p += blockDim.x)
+        compress_pair(in, p, g0 + p, out.level[l - 1], keep);
+  }
 }
 
 // (b, 12) -> (b, 12).
-__global__ void permute_kernel(const uint64_t* __restrict__ in, int64_t b,
-                               uint64_t* __restrict__ out) {
+__global__ void __launch_bounds__(THREADS)
+permute_kernel(const uint64_t* __restrict__ in, int64_t b,
+               uint64_t* __restrict__ out) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= b) return;
   uint64_t s[WIDTH];
@@ -179,7 +522,7 @@ __global__ void permute_kernel(const uint64_t* __restrict__ in, int64_t b,
   for (int j = 0; j < WIDTH; ++j) s[j] = in[i * WIDTH + j];
   permute(s);
 #pragma unroll
-  for (int j = 0; j < WIDTH; ++j) out[i * WIDTH + j] = s[j];
+  for (int j = 0; j < WIDTH; ++j) out[i * WIDTH + j] = canon(s[j]);
 }
 
 inline unsigned blocks_for(int64_t n) {
@@ -204,17 +547,39 @@ const char* p2_error_string(int e) {
 
 int p2_leaf_hash(const void* in, int64_t rows, int cols, void* out,
                  void* stream) {
-  if (rows > 0)
+  if (rows > 0 && cols > 0)
     leaf_hash_kernel<<<blocks_for(rows), THREADS, 0, (cudaStream_t)stream>>>(
         (const uint64_t*)in, rows, cols, (uint64_t*)out);
   return (int)cudaGetLastError();
 }
 
-int p2_two_to_one_level(const void* child, int64_t n, void* out,
-                        void* stream) {
-  if (n > 0)
-    two_to_one_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint64_t*)child, n, (uint64_t*)out);
+// child: (n_child, 4); outs[l - 1]: (n_child >> l, 4) for l = 1..levels.
+// n_child must be a multiple of 2^levels, child 16-byte aligned.  quad != 0
+// hashes each parent on four threads, in blocks of at most a warp; else
+// blocks have at most LEVEL_THREADS threads.
+int p2_merkle_levels(const void* child, int64_t n_child, int levels,
+                     void* const* outs, int quad, void* stream) {
+  if (levels < 1 || levels > MAX_LEVELS || n_child % (1ll << levels) != 0)
+    return (int)cudaErrorInvalidValue;
+  LevelOutputs o;
+  for (int l = 0; l < MAX_LEVELS; ++l)
+    o.level[l] = l < levels ? (uint64_t*)outs[l] : nullptr;
+  // widen a block's run of subtrees until each thread has a first-level
+  // parent, as far as the child count allows
+  const int want = quad ? QUAD_WARP_PARENTS : LEVEL_THREADS;
+  int span = levels;
+  while ((1 << (span - 1)) < want && n_child % (2ll << span) == 0) ++span;
+  const int64_t blocks = n_child >> span;
+  const int parents = min(want, 1 << (span - 1));
+  const size_t smem = ((size_t)3 << span) * sizeof(uint64_t);
+  if (blocks > 0 && quad)
+    merkle_levels_kernel<true><<<(unsigned)blocks, 4 * parents, smem,
+                                 (cudaStream_t)stream>>>(
+        (const uint64_t*)child, levels, span, o);
+  else if (blocks > 0)
+    merkle_levels_kernel<false><<<(unsigned)blocks, parents, smem,
+                                  (cudaStream_t)stream>>>(
+        (const uint64_t*)child, levels, span, o);
   return (int)cudaGetLastError();
 }
 

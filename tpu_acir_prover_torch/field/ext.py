@@ -1,13 +1,13 @@
 """Quadratic extension GF(p^2) = F[u]/(u^2 - 7) on ``(re, im)`` tensor pairs.
 
-Counterpart of ``make_ext`` in ``tpu_acir_prover/field/ext.py``.
+Counterpart of ``make_ext`` in ``tpu_acir_prover/field/ext.py``; the host
+scalar ops ``e_add`` .. ``e_pow`` on python-int pairs are copies of that
+module's.
 """
 
 from __future__ import annotations
 
 import torch
-
-from tpu_acir_prover.field.ext import e_mul
 
 from . import gl
 
@@ -93,3 +93,36 @@ def powers(z, n: int, device):
         re, im = torch.cat([re, nre]), torch.cat([im, nim])
         cur = e_mul(cur, cur)
     return re[:n], im[:n]
+
+
+# Host scalar extension ops on python-int pairs (for the challenger/verifier).
+
+def e_add(x, y):
+    return ((x[0] + y[0]) % gl.P, (x[1] + y[1]) % gl.P)
+
+
+def e_sub(x, y):
+    return ((x[0] - y[0]) % gl.P, (x[1] - y[1]) % gl.P)
+
+
+def e_mul(x, y):
+    p = gl.P
+    return ((x[0] * y[0] + W * x[1] * y[1]) % p, (x[0] * y[1] + x[1] * y[0]) % p)
+
+
+def e_inv(x):
+    p = gl.P
+    d = (x[0] * x[0] - W * x[1] * x[1]) % p
+    di = pow(d, p - 2, p)
+    return ((x[0] * di) % p, (-x[1] * di) % p)
+
+
+def e_pow(x, e):
+    r = (1, 0)
+    b = x
+    while e > 0:
+        if e & 1:
+            r = e_mul(r, b)
+        b = e_mul(b, b)
+        e >>= 1
+    return r

@@ -3,6 +3,8 @@
 Counterpart of the native-u64 ops in ``tpu_acir_prover/field/gl.py``
 (``_make_gl_u64``: ``_add64``, ``_sub64``, ``_reduce128_64``, ``_mul64``),
 with the same reduction steps, so every op returns the same canonical value.
+The field constants and the python-int scalar ops at the end are copies of
+that module's; its numpy ``(lo, hi)`` namespace is ``field/gl_np.py``.
 
 torch has no usable unsigned 64-bit type, so:
 
@@ -17,7 +19,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpu_acir_prover.field.gl import P
+P = (1 << 64) - (1 << 32) + 1  # Goldilocks prime
+EPSILON = (1 << 32) - 1  # 2^64 mod p
+
+# Multiplicative group: |F*| = p - 1 = 2^32 * 3 * 5 * 17 * 257 * 65537.
+TWO_ADICITY = 32
+# 7 generates F* (verified in tests against the factorization above).
+MULTIPLICATIVE_GENERATOR = 7
+# 7^((p-1)/2^32): a primitive 2^32-nd root of unity (computed in tests).
+POWER_OF_TWO_GENERATOR = pow(7, (P - 1) >> 32, P)
 
 EPS = (1 << 32) - 1          # 2^64 mod p; also -p mod 2^64
 M32 = (1 << 32) - 1
@@ -181,3 +191,37 @@ def sum_axis(x, dim: int = 0):
         s = add(x[:h], x[h:2 * h])
         x = torch.cat([s, x[2 * h:]]) if x.shape[0] % 2 else s
     return x[0]
+
+
+# ---------------------------------------------------------------------------
+# Host scalar ops on python ints (for the Fiat-Shamir challenger, twiddle
+# precomputation and small host-side math).
+
+
+def s_add(a: int, b: int) -> int:
+    return (a + b) % P
+
+
+def s_sub(a: int, b: int) -> int:
+    return (a - b) % P
+
+
+def s_mul(a: int, b: int) -> int:
+    return (a * b) % P
+
+
+def s_inv(a: int) -> int:
+    return pow(a, P - 2, P)
+
+
+def s_pow(a: int, e: int) -> int:
+    return pow(a, e, P)
+
+
+def root_of_unity(log_n: int) -> int:
+    """Primitive 2^log_n-th root of unity."""
+    assert 0 <= log_n <= TWO_ADICITY
+    g = POWER_OF_TWO_GENERATOR
+    for _ in range(TWO_ADICITY - log_n):
+        g = (g * g) % P
+    return g

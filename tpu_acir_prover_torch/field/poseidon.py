@@ -1,9 +1,12 @@
 """Poseidon2 width 12 over Goldilocks as plain torch ops.
 
-Counterpart of ``make_poseidon`` in ``tpu_acir_prover/field/poseidon.py``,
-with the constants imported from there.  These are the plain twins of the
-CUDA kernels in ``kernels/poseidon.py``: the kernel wrappers call them for
-CPU tensors, and the tests and ``chip_smoke.py`` hold the kernels to them.
+Counterpart of ``make_poseidon`` in ``tpu_acir_prover/field/poseidon.py``.
+The constant derivation (SHA-256 in counter mode, the invertible internal
+diagonal) and the python-int permutation used by the host challenger and
+verifier are copies of that module's.  The torch functions are the plain
+twins of the CUDA kernels in ``kernels/poseidon.py``: the kernel wrappers
+call them for CPU tensors, and the tests and ``chip_smoke.py`` hold the
+kernels to them.
 
 States are ``(..., 12)`` int64 tensors and digests ``(..., 4)``: the lane
 axis is last, the row-major layout of the LDE matrices.
@@ -12,16 +15,86 @@ axis is last, the row-major layout of the LDE matrices.
 from __future__ import annotations
 
 import functools
+import hashlib
 
 import numpy as np
 import torch
 
-from tpu_acir_prover.field.poseidon import (DIAG_M1, DIGEST,
-                                            EXTERNAL_ROUNDS,
-                                            INTERNAL_CONSTANTS, INTERNAL_ROUNDS,
-                                            RATE, ROUND_CONSTANTS, WIDTH)
-
 from . import gl
+
+WIDTH = 12
+RATE = 8
+CAP = 4
+DIGEST = 4
+EXTERNAL_ROUNDS = 8  # 4 at the beginning + 4 at the end
+INTERNAL_ROUNDS = 22
+ALPHA = 7
+
+
+def _h64(tag: str) -> int:
+    h = hashlib.sha256(tag.encode()).digest()
+    return int.from_bytes(h[:8], "little") % gl.P
+
+
+def _derive_round_constants():
+    """External rounds use full-width constants; internal rounds add a
+    constant to lane 0 only (stored in column 0)."""
+    ext = np.zeros((EXTERNAL_ROUNDS, WIDTH), dtype=np.uint64)
+    for r in range(EXTERNAL_ROUNDS):
+        for i in range(WIDTH):
+            ext[r, i] = _h64(f"tpu-acir-prover.poseidon2.ext.{r}.{i}")
+    internal = np.zeros(INTERNAL_ROUNDS, dtype=np.uint64)
+    for r in range(INTERNAL_ROUNDS):
+        internal[r] = _h64(f"tpu-acir-prover.poseidon2.int.{r}")
+    return ext, internal
+
+
+def _derive_diag():
+    """Internal-matrix diagonal mu: M_I = J + diag(mu - 1) (J = all-ones),
+    i.e. M_I[i][j] = 1 for i != j and mu_i on the diagonal.  Re-derive
+    until det(M_I) != 0 mod p (a random matrix is invertible w.h.p.)."""
+    ctr = 0
+    while True:
+        mu = [_h64(f"tpu-acir-prover.poseidon2.diag.{ctr}.{i}")
+              for i in range(WIDTH)]
+        # det via Gaussian elimination mod p
+        m = [[1] * WIDTH for _ in range(WIDTH)]
+        for i in range(WIDTH):
+            m[i][i] = mu[i]
+        det = 1
+        singular = False
+        for c in range(WIDTH):
+            piv = next((r for r in range(c, WIDTH) if m[r][c]), None)
+            if piv is None:
+                singular = True
+                break
+            if piv != c:
+                m[c], m[piv] = m[piv], m[c]
+                det = gl.P - det
+            det = det * m[c][c] % gl.P
+            inv = pow(m[c][c], gl.P - 2, gl.P)
+            for r in range(c + 1, WIDTH):
+                f = m[r][c] * inv % gl.P
+                if f:
+                    for k in range(c, WIDTH):
+                        m[r][k] = (m[r][k] - f * m[c][k]) % gl.P
+        if not singular and det:
+            return np.array(mu, dtype=np.uint64)
+        ctr += 1
+
+
+# the Poseidon2 paper's M4; M_E = circ(2*M4, M4, M4) expanded to 12x12
+_M4 = [[5, 7, 1, 3], [4, 6, 1, 1], [1, 3, 5, 7], [1, 1, 4, 6]]
+_ME_INT = [[(2 if a == b else 1) * _M4[i][j]
+            for b in range(WIDTH // 4) for j in range(4)]
+           for a in range(WIDTH // 4) for i in range(4)]
+
+_EXT_RC, _INT_RC = _derive_round_constants()
+ROUND_CONSTANTS = _EXT_RC  # (8, 12) uint64 — external-round constants
+INTERNAL_CONSTANTS = _INT_RC  # (22,) uint64
+DIAG = _derive_diag()  # (12,) uint64: internal-matrix diagonal mu
+# precomputed mu - 1 for the out_i = sum + (mu_i - 1) x_i form
+DIAG_M1 = ((DIAG.astype(object) - 1) % gl.P).astype(np.uint64)
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,3 +174,76 @@ def two_to_one(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     z = torch.zeros(left.shape[:-1] + (WIDTH - RATE,), dtype=torch.int64,
                     device=left.device)
     return permute(torch.cat([left, right, z], dim=-1))[..., :DIGEST]
+
+
+def two_to_one_levels(child: torch.Tensor, n_levels: int) -> list:
+    """The ``n_levels`` Merkle levels above ``(N, 4)`` child digests, level
+    by level: parent i compresses children 2i and 2i+1."""
+    levels = [child]
+    for _ in range(n_levels):
+        levels.append(two_to_one(levels[-1][0::2], levels[-1][1::2]))
+    return levels[1:]
+
+
+# ---------------------------------------------------------------------------
+# Scalar (python-int) permutation for the host challenger and proof
+# verification paths.
+
+_EXT_INT = [[int(_EXT_RC[r, i]) for i in range(WIDTH)]
+            for r in range(EXTERNAL_ROUNDS)]
+_INT_INT = [int(v) for v in _INT_RC]
+_DIAG_M1_INT = [int(v) for v in DIAG_M1]
+_P = gl.P
+
+
+def _sbox_int(x):
+    x2 = x * x % _P
+    x3 = x2 * x % _P
+    return x3 * x3 % _P * x % _P
+
+
+def _external_matrix_int(state):
+    return [sum(_ME_INT[i][j] * state[j] for j in range(WIDTH)) % _P
+            for i in range(WIDTH)]
+
+
+def _internal_matrix_int(state):
+    s = sum(state) % _P
+    return [(s + _DIAG_M1_INT[i] * state[i]) % _P for i in range(WIDTH)]
+
+
+def permute_ints(state):
+    """Poseidon2 permutation on a list of 12 python ints (host scalar path).
+
+    Bit-identical to the vectorized `make_poseidon(...).permute` (tested)."""
+    assert len(state) == WIDTH
+    state = _external_matrix_int(list(state))
+    half = EXTERNAL_ROUNDS // 2
+    for r in range(half):
+        state = [_sbox_int((state[i] + _EXT_INT[r][i]) % _P)
+                 for i in range(WIDTH)]
+        state = _external_matrix_int(state)
+    for r in range(INTERNAL_ROUNDS):
+        state = list(state)
+        state[0] = _sbox_int((state[0] + _INT_INT[r]) % _P)
+        state = _internal_matrix_int(state)
+    for r in range(half, EXTERNAL_ROUNDS):
+        state = [_sbox_int((state[i] + _EXT_INT[r][i]) % _P)
+                 for i in range(WIDTH)]
+        state = _external_matrix_int(state)
+    return state
+
+
+def hash_no_pad_ints(inputs):
+    state = [0] * WIDTH
+    for off in range(0, len(inputs), RATE):
+        chunk = inputs[off:off + RATE]
+        state = list(chunk) + state[len(chunk):]
+        state = permute_ints(state)
+    return tuple(state[:DIGEST])
+
+
+def two_to_one_ints(left, right):
+    state = list(left) + list(right) + [0] * (WIDTH - RATE)
+    state = permute_ints(state)
+    return tuple(state[:DIGEST])

@@ -3,7 +3,10 @@
 Each wrapper takes ``int64`` tensors holding u64 field bits:
 
 - ``leaf_hash``: ``(M, C)`` rows -> ``(M, 4)`` sponge digests;
-- ``two_to_one_level``: child level ``(2N, 4)`` -> parent level ``(N, 4)``;
+- ``two_to_one_levels``: child level ``(N, 4)`` -> the ``n`` parent levels
+  ``(N / 2, 4)`` .. ``(N / 2^n, 4)``, several levels per launch, a narrow
+  level with four threads per permutation (each launch counts under
+  ``two_to_one_level``, the name of the Pallas kernel it replaces);
 - ``permute``: ``(B, 12)`` states -> ``(B, 12)``.
 
 A CPU tensor goes to the plain twin in ``field/poseidon.py``.  A CUDA
@@ -11,7 +14,8 @@ tensor goes to the kernel, or the wrapper raises: there is no fallback.
 ``launches`` counts kernel launches per wrapper.
 
 The library is built with ``nvcc`` at first use into ``_build/``, keyed by
-a hash of the sources and flags, and loaded with ctypes.
+a hash of the sources and flags, and loaded with ctypes; ptxas's register
+and spill report is kept beside it (``ptxas_report``).
 """
 
 from __future__ import annotations
@@ -26,17 +30,23 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tpu_acir_prover.field.poseidon import (DIAG_M1, DIGEST,
-                                            INTERNAL_CONSTANTS,
-                                            ROUND_CONSTANTS, WIDTH)
-
 from ..field import poseidon as plain
+from ..field.poseidon import (DIAG_M1, DIGEST, INTERNAL_CONSTANTS,
+                              ROUND_CONSTANTS, WIDTH)
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "poseidon2.cu",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Merkle levels: a launch hashes up to LEVELS_PER_LAUNCH levels with one
+# thread per permutation; from a child level of at most NARROW_CHILDREN
+# digests up, it hashes up to NARROW_LEVELS levels with four threads per
+# permutation.  Chosen from a measurement at the main path's shapes (PERF.md);
+# neither may exceed MAX_LEVELS in csrc/poseidon2.cu.
+LEVELS_PER_LAUNCH = 2
+NARROW_CHILDREN = 1 << 15
+NARROW_LEVELS = 3
 
 launches = {"leaf_hash": 0, "two_to_one_level": 0, "permute": 0}
 
@@ -76,8 +86,18 @@ def build() -> Path:
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    tmp.with_suffix(".log").write_text(res.stdout + res.stderr)
+    os.replace(tmp.with_suffix(".log"), so.with_suffix(".log"))
     os.replace(tmp, so)
     return so
+
+
+def ptxas_report() -> list:
+    """ptxas's lines on each kernel's registers, spills and shared memory,
+    from the build of the library."""
+    lines = build().with_suffix(".log").read_text().splitlines()
+    return [ln.split(":", 1)[-1].strip() for ln in lines
+            if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
 
 
 def _load():
@@ -87,11 +107,12 @@ def _load():
     lib = ctypes.CDLL(str(build()))
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.p2_set_constants.argtypes = [vp, vp, vp]
-    lib.p2_leaf_hash.argtypes = [vp, i64, ctypes.c_int, vp, vp]
-    lib.p2_two_to_one_level.argtypes = [vp, i64, vp, vp]
+    ci = ctypes.c_int
+    lib.p2_leaf_hash.argtypes = [vp, i64, ci, vp, vp]
+    lib.p2_merkle_levels.argtypes = [vp, i64, ci, ctypes.POINTER(vp), ci, vp]
     lib.p2_permute.argtypes = [vp, i64, vp, vp]
-    for fn in (lib.p2_set_constants, lib.p2_leaf_hash,
-               lib.p2_two_to_one_level, lib.p2_permute):
+    for fn in (lib.p2_set_constants, lib.p2_leaf_hash, lib.p2_merkle_levels,
+               lib.p2_permute):
         fn.restype = ctypes.c_int
     lib.p2_error_string.argtypes = [ctypes.c_int]
     lib.p2_error_string.restype = ctypes.c_char_p
@@ -153,19 +174,33 @@ def leaf_hash(matrix: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def two_to_one_level(child: torch.Tensor) -> torch.Tensor:
-    """(2N, 4) child digests -> (N, 4) parents of children 2i, 2i+1."""
-    ok = child.dim() == 2 and child.shape[1] == DIGEST and \
-        child.shape[0] % 2 == 0
-    if not _route(child, ok, "two_to_one_level"):
-        return plain.two_to_one(child[0::2], child[1::2])
+def two_to_one_levels(child: torch.Tensor, n_levels: int):
+    """(N, 4) child digests -> the ``n_levels`` levels above them, a list of
+    (N / 2^l, 4) tensors for l = 1..n_levels; parent i of a level compresses
+    children 2i and 2i+1."""
+    ok = child.dim() == 2 and child.shape[1] == DIGEST and n_levels >= 1 \
+        and child.shape[0] % (1 << n_levels) == 0
+    if not _route(child, ok, "two_to_one_levels"):
+        return plain.two_to_one_levels(child, n_levels)
     lib = _lib_for(child)
-    n = child.shape[0] // 2
-    out = torch.empty((n, DIGEST), dtype=torch.int64, device=child.device)
-    _check(lib, lib.p2_two_to_one_level(child.data_ptr(), n, out.data_ptr(),
-                                        _stream(child)), "two_to_one_level")
-    launches["two_to_one_level"] += 1
-    return out
+    if child.data_ptr() % 16:
+        raise ValueError("two_to_one_levels: child must be 16-byte aligned")
+    levels = []
+    cur = child
+    while len(levels) < n_levels:
+        narrow = cur.shape[0] <= NARROW_CHILDREN
+        k = min(NARROW_LEVELS if narrow else LEVELS_PER_LAUNCH,
+                n_levels - len(levels))
+        outs = [torch.empty((cur.shape[0] >> l, DIGEST), dtype=torch.int64,
+                            device=child.device) for l in range(1, k + 1)]
+        ptrs = (ctypes.c_void_p * k)(*(o.data_ptr() for o in outs))
+        _check(lib, lib.p2_merkle_levels(cur.data_ptr(), cur.shape[0], k,
+                                         ptrs, int(narrow), _stream(child)),
+               "two_to_one_levels")
+        launches["two_to_one_level"] += 1
+        levels += outs
+        cur = outs[-1]
+    return levels
 
 
 def permute(states: torch.Tensor) -> torch.Tensor:

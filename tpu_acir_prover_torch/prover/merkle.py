@@ -1,4 +1,4 @@
-"""Poseidon Merkle trees with caps, one kernel launch per level.
+"""Poseidon Merkle trees with caps, several levels per kernel launch.
 
 Counterpart of ``leaf_digests``, ``merkle_levels`` and ``MerkleTree`` in
 ``tpu_acir_prover/prover/merkle.py``.  Levels are ``(size, 4)`` int64
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..field import gl
+from ..field.poseidon import hash_no_pad_ints, two_to_one_ints
 from ..kernels import poseidon as kp
 
 
@@ -23,11 +24,12 @@ def leaf_digests(matrix: torch.Tensor) -> torch.Tensor:
 
 
 def merkle_levels(leaf: torch.Tensor, cap_size: int) -> List[torch.Tensor]:
-    """All digest levels from the (M, 4) leaves up to ``cap_size`` nodes."""
-    levels = [leaf]
-    while levels[-1].shape[0] > cap_size:
-        levels.append(kp.two_to_one_level(levels[-1]))
-    return levels
+    """All digest levels from the (M, 4) leaves up to ``cap_size`` nodes;
+    M and ``cap_size`` are powers of two."""
+    m = leaf.shape[0]
+    if m <= cap_size:
+        return [leaf]
+    return [leaf] + kp.two_to_one_levels(leaf, (m // cap_size).bit_length() - 1)
 
 
 class MerkleTree:
@@ -71,3 +73,18 @@ def merkle_tree(matrix: torch.Tensor, cap_height: int) -> MerkleTree:
     m = matrix.shape[0]
     ch = min(cap_height, m.bit_length() - 1)
     return MerkleTree(matrix, merkle_levels(leaf_digests(matrix), 1 << ch))
+
+
+def verify_merkle_path(leaf_values_u64, index: int, path, cap_u64) -> bool:
+    """Check a Merkle path against a cap (host side, scalar Poseidon).
+
+    NB: no np.asarray on python-int inputs — numpy 2.x silently coerces
+    ints >= 2^63 to float64, corrupting field elements."""
+    node = hash_no_pad_ints([int(v) for v in leaf_values_u64])
+    idx = index
+    for sib in path:
+        s = tuple(int(x) for x in sib)
+        node = two_to_one_ints(s, node) if (idx & 1) else two_to_one_ints(node, s)
+        idx >>= 1
+    expect = tuple(int(x) for x in cap_u64[idx])
+    return node == expect

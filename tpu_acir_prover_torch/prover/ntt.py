@@ -10,10 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from tpu_acir_prover.field.gl import (MULTIPLICATIVE_GENERATOR, root_of_unity,
-                                      s_inv)
-
 from ..field import gl
+from ..field.gl import MULTIPLICATIVE_GENERATOR, root_of_unity, s_inv
 
 
 def _bit_reverse(log_n: int, device) -> torch.Tensor:

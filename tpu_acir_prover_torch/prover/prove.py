@@ -4,8 +4,8 @@ Counterpart of ``ProvingKey`` and ``prove`` in
 ``tpu_acir_prover/prover/prove.py``; the proof relation (gate, permutation
 with partial products, LogUp lookups, quotient in NUM_CHUNKS chunks) is
 described in that module's docstring.  The Fiat-Shamir transcript, proof
-containers and verifier are the JAX package's host modules, so the port
-must give the same proof bytes.
+containers and verifier are the port's copies of the JAX package's host
+modules, so the port must give the same proof bytes.
 
 Plain torch ops everywhere except Poseidon2, which goes through the
 wrappers in ``kernels/poseidon.py`` (Merkle leaves and levels, the
@@ -20,25 +20,23 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tpu_acir_prover.circuit.builder import (NUM_SELECTORS, SEL_QLK,
-                                             lookup_groups, perm_groups)
-from tpu_acir_prover.circuit.compile import CompiledCircuit, powers_u64
-from tpu_acir_prover.field.ext import e_add, e_mul, e_pow
-from tpu_acir_prover.field.gl import (MULTIPLICATIVE_GENERATOR, P,
-                                      root_of_unity, s_inv)
-from tpu_acir_prover.field.poseidon import RATE
-from tpu_acir_prover.prover.challenger import Challenger
-from tpu_acir_prover.prover.config import ProofConfig, STANDARD_CONFIG
-from tpu_acir_prover.prover.fri import _HALF, _mul_u64
-from tpu_acir_prover.prover.proof import (FriStep, Openings, OracleOpening,
-                                          Proof, QueryRound, VerifyingKey)
-from tpu_acir_prover.utils.timing import PhaseTimer
-
+from ..circuit.builder import (NUM_SELECTORS, SEL_QLK, lookup_groups,
+                               perm_groups)
+from ..circuit.compile import CompiledCircuit, powers_u64
 from ..field import ext as E
 from ..field import gl
+from ..field.ext import e_add, e_mul, e_pow
+from ..field.gl import MULTIPLICATIVE_GENERATOR, P, root_of_unity, s_inv
+from ..field.poseidon import RATE
 from ..kernels import poseidon as kp
+from ..utils.timing import PhaseTimer
+from .challenger import Challenger
+from .config import ProofConfig, STANDARD_CONFIG
+from .fri import _HALF, _mul_u64
 from .merkle import MerkleTree, merkle_tree
 from .ntt import coset_intt, coset_lde, intt
+from .proof import (FriStep, Openings, OracleOpening, Proof, QueryRound,
+                    VerifyingKey)
 
 NUM_CHUNKS = 6  # quotient degree < 6n for constraint degree <= 7 at rate 8
 # LDE rows per quotient evaluation step; bounds the step's temporaries
