@@ -8,19 +8,25 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 1. device: the card's name and power limit;
 2. build: the Poseidon2 kernels from ``tpu_acir_prover_torch/csrc``, with
    ptxas's registers and spills per kernel;
-3. kernels: each kernel against its plain torch twin on the card at the
-   prover's shapes, bit for bit, with both times and the card's bound for
-   the same work;
-4. parity: proof bytes of the port on the card equal those of the port on
-   the CPU (plain twins), on a plain and a lookup circuit (test config);
-   the CPU tests hold the CPU bytes to the JAX package's numpy prover;
-5. main path: the port's CLI proves the 2^17-row ECDSA secp256k1 circuit
-   (standard config, LDE 2^20 rows), writes the vk and verifies; the port's
-   verifier accepts the proof and rejects it with a byte flipped; a second
-   proof on the warm proving key gives the phase breakdown, peak device
-   memory and the kernels' launch counts, and a third, under
-   ``torch.profiler``, the device time of all kernels and of the Poseidon2
-   kernels in one proof.
+3. parity: proof bytes of the port on the card equal those of the port on
+   the CPU (plain twins), on a plain and a lookup circuit (test config),
+   from the per-phase prover and from the fused prover's CUDA graph; the
+   CPU tests hold the CPU bytes to the JAX package's numpy prover;
+4. main path: the port's CLI proves the 2^17-row ECDSA secp256k1 circuit
+   (standard config, LDE 2^20 rows) on the fused path, which captures the
+   proof as one CUDA graph and replays it; it writes the vk and verifies;
+   the port's verifier accepts the proof and rejects it with a byte
+   flipped;
+5. fused: the graph's capture and instantiate times, its pool and its
+   kernel launches; warm fused and per-phase proofs of the ECDSA circuit in
+   turns, three each, with their medians, bytes and peak memory; the
+   synchronising calls of each; one replay under ``torch.profiler``: its
+   device operations, device time and the device's idle share;
+6. kernels: each kernel against its plain torch twin on the card at the
+   main path's shapes, bit for bit, with both times and the card's bound
+   for the same work (the grind from the ECDSA proof's own state);
+7. profile: one warm per-phase proof under ``torch.profiler``, the device
+   time of all kernels and of the Poseidon2 kernels.
 
 The last three lines are a JSON object with a record per kernel, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  The
@@ -46,13 +52,16 @@ import torch  # noqa: E402
 PALLAS = "tpu_acir_prover/kernels/poseidon_pallas.py"
 SOURCE = "tpu_acir_prover_torch/csrc/poseidon2.cu"
 REPLACES = {"leaf_hash": f"{PALLAS}:233", "two_to_one_level": f"{PALLAS}:283",
-            "permute": f"{PALLAS}:155"}
+            "permute": f"{PALLAS}:155",
+            "grind": "tpu_acir_prover/prover/fused.py:195"}
 LEAF_WIDTHS = (43, 17, 18, 12, 4)   # the ECDSA circuit's oracle widths
 LEAF_ROWS = 1 << 20                 # its LDE rows at rate 8
 TREE_CAP = 16                       # its Merkle cap (cap height 4)
-GRIND_STATES = 1 << 17              # one grind launch
+PERMUTE_STATES = 1 << 17            # a batch as large as the plain grind's
+POW_BITS = 16                       # STANDARD_CONFIG's
+ALTERNATIONS = 3                    # warm fused / per-phase proofs, in turns
 POSEIDON_KERNELS = ("leaf_hash_kernel", "merkle_levels_kernel",
-                    "permute_kernel")   # names in csrc/poseidon2.cu
+                    "permute_kernel", "grind_kernel")  # csrc/poseidon2.cu
 
 # The card's bound for a batch of Poseidon2 permutations: the larger of its
 # bytes over the memory rate and its 32-bit multiply-adds over their peak
@@ -80,7 +89,8 @@ def max_abs_err(got, want):
     from tpu_acir_prover_torch.field import gl
     err = 0
     for a, b in zip(got, want):
-        x, y = gl.to_u64(a).astype(object), gl.to_u64(b).astype(object)
+        x = gl.to_u64(a).reshape(-1).astype(object)
+        y = gl.to_u64(b).reshape(-1).astype(object)
         err = max(err, int(abs(x - y).max()) if x.size else 0)
     return err
 
@@ -109,8 +119,9 @@ def phase_build():
         say(f"[build] ptxas: {line}")
 
 
-def phase_kernels():
-    """Kernel vs plain twin on the card; returns per-kernel records."""
+def phase_kernels(grind_state, grind_lane):
+    """Kernel vs plain twin on the card; returns per-kernel records.  The
+    grind searches from the ECDSA proof's own state and nonce lane."""
     from tpu_acir_prover_torch.field import poseidon as plain
     from tpu_acir_prover_torch.kernels import poseidon as kp
     from tpu_acir_prover_torch.kernels.bench import cuda_ms, field_input
@@ -134,10 +145,21 @@ def phase_kernels():
                   lambda x: plain.two_to_one_levels(x, n_levels),
                   bound(LEAF_ROWS - TREE_CAP,
                         (2 * LEAF_ROWS - TREE_CAP) * 32)))
-    cases.append(("permute", "(2^17, 12)",
-                  field_input(rng, (GRIND_STATES, 12), dev),
+    cases.append(("permute", "(1, 12): the transcript's duplex",
+                  field_input(rng, (1, 12), dev),
                   lambda x: [kp.permute(x)], lambda x: [plain.permute(x)],
-                  bound(GRIND_STATES, GRIND_STATES * 12 * 8 * 2)))
+                  bound(1, 12 * 8 * 2)))
+    cases.append(("permute", "(2^17, 12)",
+                  field_input(rng, (PERMUTE_STATES, 12), dev),
+                  lambda x: [kp.permute(x)], lambda x: [plain.permute(x)],
+                  bound(PERMUTE_STATES, PERMUTE_STATES * 12 * 8 * 2)))
+    nonce = int(kp.grind(grind_state, grind_lane, POW_BITS))
+    # the least work: every nonce up to the smallest hit is tried
+    cases.append(("grind", f"ECDSA proof's state, nonce lane {grind_lane}, "
+                  f"{POW_BITS} bits: nonce {nonce}", grind_state,
+                  lambda x: [kp.grind(x, grind_lane, POW_BITS)],
+                  lambda x: [plain.grind(x, grind_lane, POW_BITS)],
+                  bound(nonce + 1, 12 * 8 + 8)))
     records = {}
     for name, shape, x, kern, twin, (bound_ms, bound_by) in cases:
         got, want = kern(x), twin(x)
@@ -186,6 +208,7 @@ def _small_circuits():
 
 def phase_parity():
     from tpu_acir_prover_torch.prover.config import TEST_CONFIG
+    from tpu_acir_prover_torch.prover.fused import prove_fused
     from tpu_acir_prover_torch.prover.prove import ProvingKey, prove
     from tpu_acir_prover_torch.prover.serialization import serialize_proof
     from tpu_acir_prover_torch.prover.verify import verify
@@ -195,29 +218,30 @@ def phase_parity():
         pk = ProvingKey(cc, TEST_CONFIG, device="cuda")
         proof = prove(pk, ext)
         verify(pk.vk, proof)
-        if serialize_proof(proof) != want:
+        fused = prove_fused(pk, ext)
+        verify(pk.vk, fused)
+        if serialize_proof(proof) != want or serialize_proof(fused) != want:
             raise AssertionError(f"{name}: proof bytes on the card differ "
                                  "from those on the CPU")
-        say(f"[parity] {name} n={cc.n}: {len(want)} proof bytes on the card "
-            "equal to the port's on the CPU (plain twins); verified")
+        say(f"[parity] {name} n={cc.n}: {len(want)} proof bytes on the card, "
+            "per-phase and fused (a CUDA graph replay), equal to the port's "
+            "on the CPU (plain twins); both verified")
 
 
 def phase_main_path(work):
     """The port's CLI on the ECDSA circuit; returns the kernels' launch
-    counts over that run."""
+    counts over that run (the eager warm-up run and the capture of the
+    fused path), the proving key, the external values and the proof."""
     from tpu_acir_prover_torch import api, cli
     from tpu_acir_prover_torch.acir import codec, ir
     from tpu_acir_prover_torch.kernels import poseidon as kp
     from tpu_acir_prover_torch.prover.compress import (compress_proof,
                                                        decompress_proof)
     from tpu_acir_prover_torch.prover.config import STANDARD_CONFIG
-    from tpu_acir_prover_torch.prover.prove import prove
     from tpu_acir_prover_torch.prover.serialization import (
-        deserialize_compressed_proof, deserialize_vk,
-        serialize_compressed_proof)
+        deserialize_compressed_proof, deserialize_vk)
     from tpu_acir_prover_torch.prover.verify import verify
     from tpu_acir_prover_torch.utils import circuits
-    from tpu_acir_prover_torch.utils.timing import PhaseTimer
 
     prog_path = os.path.join(work, "ecdsa.json")
     wit_path = os.path.join(work, "ecdsa.gz")
@@ -249,6 +273,10 @@ def phase_main_path(work):
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"main path launched no {missing}")
+    if pk._captured is None:
+        raise AssertionError("the CLI did not prove through a CUDA graph")
+    say("[main] the CLI took the fused path: one CUDA graph captured for "
+        "the key and replayed")
 
     with open(vk_path, "rb") as f:
         vk = deserialize_vk(f.read())
@@ -267,36 +295,119 @@ def phase_main_path(work):
         raise AssertionError("tampered proof was accepted")
 
     ws = codec.load_witness_stack(wit_path)
-    ext = tr.external_values(ws.peek().witness)
-    timer = PhaseTimer()
-    kp.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    proof = prove(pk, ext, timer=timer)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    if serialize_compressed_proof(compress_proof(pk.vk, proof)) != data:
-        raise AssertionError("second proof differs from the first")
-    phases = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timer.phases)
-    say(f"[main] warm prove {warm_s:.3f} s ({phases}); peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
-        f"launches {dict(kp.launches)}")
-    profile_proof(pk, ext)
-    return launches
+    return launches, pk, tr.external_values(ws.peek().witness), data
 
 
-def profile_proof(pk, ext):
-    """One warm proof under torch.profiler (device activity only): the
-    device time and count of all kernels and of the Poseidon2 kernels."""
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def phase_fused(pk, ext, data):
+    """The captured graph of the CLI's proof, then warm fused and per-phase
+    proofs in turns, their synchronising calls, and one profiled replay.
+    Returns the (state, lane) the per-phase proof's grind searched from."""
+    from tpu_acir_prover_torch.kernels import poseidon as kp
+    from tpu_acir_prover_torch.prover.compress import compress_proof
+    from tpu_acir_prover_torch.prover.fused import prove_fused
+    from tpu_acir_prover_torch.prover.prove import prove
+    from tpu_acir_prover_torch.prover.serialization import (
+        serialize_compressed_proof)
+    from tpu_acir_prover_torch.utils.syncs import count_syncs
+    from tpu_acir_prover_torch.utils.timing import PhaseTimer
+
+    cap = pk._captured
+    say(f"[fused] one CUDA graph for the proof after witness_fill: capture "
+        f"{cap.capture_s:.3f} s, instantiate {cap.instantiate_s:.3f} s, pool "
+        f"{cap.pool_bytes / 2**30:.3f} GiB kept between replays; kernel "
+        f"launches per replay {cap.launches}")
+    missing = [k for k, v in cap.launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"the captured graph holds no {missing}")
+
+    seen = []
+    real_grind = kp.grind
+
+    def spy(state, lane, pow_bits):
+        seen.append((state.clone(), lane))
+        return real_grind(state, lane, pow_bits)
+
+    times = {"fused": [], "per-phase": []}
+    peaks = {"fused": [], "per-phase": []}
+    provers = {"fused": prove_fused, "per-phase": prove}
+    runs = [name for i in range(ALTERNATIONS) for name in
+            (("fused", "per-phase") if i % 2 == 0 else ("per-phase", "fused"))]
+    for name in runs:
+        timer = PhaseTimer()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kp.grind = spy   # the per-phase proof calls it; a replay does not
+        try:
+            t0 = time.perf_counter()
+            proof = provers[name](pk, ext, timer=timer)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            kp.grind = real_grind
+        times[name].append(dt)
+        peaks[name].append(torch.cuda.max_memory_allocated())
+        if serialize_compressed_proof(compress_proof(pk.vk, proof)) != data:
+            raise AssertionError(f"{name} proof differs from the CLI's")
+        phases = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timer.phases)
+        say(f"[fused] warm {name} proof {dt:.3f} s ({phases}); peak "
+            f"allocated {peaks[name][-1] / 2**30:.3f} GiB; bytes equal to "
+            "the CLI's")
+    say(f"[fused] medians of {ALTERNATIONS}: fused "
+        f"{_median(times['fused']):.3f} s, per-phase "
+        f"{_median(times['per-phase']):.3f} s; peak allocated fused "
+        f"{max(peaks['fused']) / 2**30:.3f} GiB (the graph's pool is "
+        f"reserved apart: {cap.pool_bytes / 2**30:.3f} GiB), per-phase "
+        f"{max(peaks['per-phase']) / 2**30:.3f} GiB")
+    _, n_fused = count_syncs(lambda: prove_fused(pk, ext))
+    _, n_phase = count_syncs(lambda: prove(pk, ext))
+    say(f"[fused] synchronising calls per proof (sync debug mode): fused "
+        f"{n_fused}, per-phase {n_phase}")
+    profile_replay(pk, ext)
+    return seen[0]
+
+
+def profile_replay(pk, ext):
+    """One replay of the captured graph under torch.profiler: its device
+    operations and device time; the idle share is one minus the device
+    time over the unprofiled replay's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from tpu_acir_prover_torch.prover.prove import prove
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        prove(pk, ext)
+    cc = pk.compiled
+    vals = cc.generate_witness(ext)
+    pub = np.array(cc.public_values(vals), dtype=np.uint64)
+    mcol = cc.multiplicities(cc.wire_values(vals)) if pk.has_lookups \
+        else None
+    cap = pk._captured
+    walls = []
+    for _ in range(3):
         torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cap.run(vals, pub, mcol)
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cap.run(vals, pub, mcol)
+        torch.cuda.synchronize()
+    total_us, total_n, ours = _device_totals(prof, DeviceType)
+    if not total_n:
+        say("[fused] the profiler recorded no device activity: device time "
+            "and idle share not measured")
+        return
+    wall = _median(walls)
+    per = ", ".join(f"{k} {n}" for k, (n, _) in ours.items())
+    say(f"[fused] one replay (inputs in, replay, outputs out): wall "
+        f"{wall * 1e3:.1f} ms (median of 3); under the profiler "
+        f"{total_n} device operations, {total_us / 1e3:.1f} ms of device "
+        f"time, idle share {1 - total_us / 1e6 / wall:.1%}; Poseidon2 "
+        f"kernels in the replay: {per}")
+
+
+def _device_totals(prof, DeviceType):
+    """(device us, device operations, {Poseidon2 kernel: [count, us]})."""
     total_us = total_n = 0
     ours = {k: [0, 0.0] for k in POSEIDON_KERNELS}
     for e in prof.key_averages():
@@ -311,13 +422,30 @@ def profile_proof(pk, ext):
             if k in e.key:
                 ours[k][0] += e.count
                 ours[k][1] += us
+    return total_us, total_n, ours
+
+
+def profile_proof(pk, ext):
+    """One warm per-phase proof under torch.profiler (device activity
+    only): the device time and count of all kernels and of the Poseidon2
+    kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_acir_prover_torch.prover.prove import prove
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prove(pk, ext)
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    total_us, total_n, ours = _device_totals(prof, DeviceType)
     if not total_n:
         say("[profile] the profiler recorded no device activity: device time "
             "not measured")
         return
     poseidon_ms = sum(t for _, t in ours.values()) / 1e3
     per = ", ".join(f"{k} {n} x {t / 1e3:.3f} ms" for k, (n, t) in ours.items())
-    say(f"[profile] warm prove under the profiler {wall_s:.3f} s: "
+    say(f"[profile] warm per-phase prove under the profiler {wall_s:.3f} s: "
         f"{total_n} device operations, {total_us / 1e3:.1f} ms of device "
         f"time; Poseidon2 kernels {poseidon_ms:.3f} ms ({per})")
 
@@ -325,10 +453,12 @@ def profile_proof(pk, ext):
 def main():
     smi = phase_device()
     phase_build()
-    records = phase_kernels()
     phase_parity()
     with tempfile.TemporaryDirectory() as work:
-        launches = phase_main_path(work)
+        launches, pk, ext, data = phase_main_path(work)
+    grind_state, grind_lane = phase_fused(pk, ext, data)
+    records = phase_kernels(grind_state, grind_lane)
+    profile_proof(pk, ext)
     for name, rec in records.items():
         rec["launches"] = launches[name]
     say(json.dumps({"kernels": list(records.values())}))

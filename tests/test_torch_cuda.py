@@ -1,5 +1,6 @@
 """The Poseidon2 CUDA kernels against their plain torch twins, on the card,
-bit for bit.
+bit for bit, and the fused prover's CUDA graph against the per-phase
+prover on the card.
 
 Skips where torch.cuda.is_available() is false.  Imports no JAX, so it also
 runs on a machine without it:
@@ -13,11 +14,20 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_acir_prover_torch.acir.translator import translate_program
+from tpu_acir_prover_torch.circuit.builder import CircuitBuilder
+from tpu_acir_prover_torch.circuit.compile import compile_circuit
 from tpu_acir_prover_torch.field import gl
 from tpu_acir_prover_torch.field import poseidon as plain
 from tpu_acir_prover_torch.field.gl import P
 from tpu_acir_prover_torch.kernels import poseidon as kp
+from tpu_acir_prover_torch.prover.config import TEST_CONFIG
+from tpu_acir_prover_torch.prover.fused import prove_fused
 from tpu_acir_prover_torch.prover.merkle import merkle_levels
+from tpu_acir_prover_torch.prover.prove import ProvingKey, prove
+from tpu_acir_prover_torch.prover.serialization import serialize_proof
+from tpu_acir_prover_torch.prover.verify import verify
+from tpu_acir_prover_torch.utils import circuits
 
 EDGES = np.array([0, P - 1, 1 << 32, (1 << 32) - 1], dtype=np.uint64)
 
@@ -97,3 +107,67 @@ def test_permute_kernel_matches_twin(cuda):
     assert torch.equal(kp.permute(st), plain.permute(st))
     with pytest.raises(ValueError):
         kp.permute(st.T.contiguous().T)  # not contiguous
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pow_bits", [1, 4, 8, 16, 20])
+def test_grind_kernel_matches_twin(cuda, pow_bits):
+    """The smallest hit, as the twin's scan of batches in order finds it,
+    for states with 0..7 inputs buffered (the nonce lane)."""
+    for seed in range(3):
+        st = np.random.default_rng(seed).integers(0, P, size=12,
+                                                  dtype=np.uint64)
+        state = gl.from_u64(st, cuda)
+        lane = (3 * seed + pow_bits) % 8
+        n0 = kp.launches["grind"]
+        got = kp.grind(state, lane, pow_bits)
+        assert kp.launches["grind"] == n0 + 1
+        assert int(got) == int(plain.grind(state, lane, pow_bits)) < 1 << 32
+
+
+def _lookup_circuit():
+    b = CircuitBuilder(lookup_bits=8)
+    for bits in (8, 5, 19):
+        b.range_check(b.add_external(), bits)
+    return compile_circuit(b)
+
+
+def _small(name):
+    if name == "fibonacci":
+        prog, wm = circuits.fibonacci()
+        tr = translate_program(prog)
+        return compile_circuit(tr.builder), tr.external_values(wm)
+    return _lookup_circuit(), np.array([200, 31, (1 << 19) - 3], np.uint64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fibonacci", "lookup_bits=8"])
+def test_fused_graph_bytes_equal_per_phase(cuda, name):
+    cc, ext = _small(name)
+    pk = ProvingKey(cc, TEST_CONFIG, device=cuda)
+    want = serialize_proof(prove(pk, ext))
+    proof = prove_fused(pk, ext)
+    verify(pk.vk, proof)
+    assert serialize_proof(proof) == want
+    # the proof came from a replay of a captured graph that holds every
+    # kernel of the path
+    assert all(pk._captured.launches[k] > 0 for k in kp.launches)
+
+
+@pytest.mark.cuda
+def test_one_graph_proves_two_witnesses(cuda):
+    """A replay overwrites the last one's inputs and outputs: two different
+    witnesses in a row, and the first again, through one captured graph."""
+    pk = ProvingKey(_lookup_circuit(), TEST_CONFIG, device=cuda)
+    a, b = [200, 31, (1 << 19) - 3], [17, 3, 12345]
+    exts = [np.array(v, np.uint64) for v in (a, b, a)]
+    got = []
+    for ext in exts:
+        proof = prove_fused(pk, ext)
+        verify(pk.vk, proof)
+        got.append(serialize_proof(proof))
+        if len(got) == 1:
+            graph = pk._captured
+        assert pk._captured is graph
+    assert got[0] == got[2] != got[1]
+    assert got[1] == serialize_proof(prove(pk, exts[1]))

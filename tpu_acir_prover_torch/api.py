@@ -3,12 +3,15 @@
 Counterpart of ``tpu_acir_prover/api.py``.  The translated and compiled
 circuit and the device-resident proving key are cached by bytecode hash,
 config and device, and shared between prove and write_vk.  ``prove_file``
-always runs the per-phase ``prove()``.
+runs the fused prover (``prover/fused.py``: one CUDA graph replay a proof
+on the card, the same body eagerly on the CPU) for traces up to 2^18 rows
+and the per-phase ``prove()`` above; ``TPU_ACIR_FUSED=0/1`` forces either.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 import struct
 from typing import Dict, Tuple
 
@@ -17,6 +20,7 @@ from .acir.translator import AcirTranslator, translate_program
 from .circuit.compile import compile_circuit
 from .prover.compress import compress_proof, decompress_proof
 from .prover.config import ProofConfig, STANDARD_CONFIG
+from .prover.fused import prove_fused
 from .prover.prove import ProvingKey, prove, resolve_device
 from .prover.serialization import (
     COMPRESSED_PROOF_MAGIC, deserialize_compressed_proof, deserialize_proof,
@@ -41,13 +45,22 @@ def load_and_compile(bytecode_path: str, config: ProofConfig = STANDARD_CONFIG,
     return _CACHE[key]
 
 
+def _prove_dispatch(pk: ProvingKey, ext, timer=None):
+    """The fused prover up to 2^18 rows, the per-phase one above (its
+    temporaries are freed between phases); TPU_ACIR_FUSED=0/1 forces."""
+    fused_default = "1" if pk.n <= (1 << 18) else "0"
+    if os.environ.get("TPU_ACIR_FUSED", fused_default) != "0":
+        return prove_fused(pk, ext, timer=timer)
+    return prove(pk, ext, timer=timer)
+
+
 def prove_file(bytecode_path: str, witness_path: str, out_path: str,
                config: ProofConfig = STANDARD_CONFIG, device="cuda",
                compress: bool = True, timer=None) -> bytes:
     tr, pk = load_and_compile(bytecode_path, config, device)
     ws = codec.load_witness_stack(witness_path)
     witness_map = ws.peek().witness if ws.stack else {}
-    proof = prove(pk, tr.external_values(witness_map), timer=timer)
+    proof = _prove_dispatch(pk, tr.external_values(witness_map), timer=timer)
     if compress:
         data = serialize_compressed_proof(compress_proof(pk.vk, proof))
     else:

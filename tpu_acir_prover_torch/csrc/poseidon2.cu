@@ -7,7 +7,10 @@
 //                     per launch (the subtree design that module's docstring
 //                     names merkle_bulk)
 //   permute        <- permute_tile (no pallas_call of its own there; here it
-//                     serves the proof-of-work grind)
+//                     is the duplex of the Fiat-Shamir transcript)
+//   grind          <- grind_graph in tpu_acir_prover/prover/fused.py (a
+//                     lax.while_loop over batches of permute_tile) and
+//                     ProvingKey.grind in tpu_acir_prover/prover/prove.py
 //
 // What bounds it: 32-bit multiply-adds.  A permutation is 736 Goldilocks
 // products (8 external rounds x 12 S-boxes x 4 for x^7, and 22 internal
@@ -44,6 +47,13 @@
 //   by shuffles, and the internal sum is a quad all-reduce.  A thread then
 //   issues about 8k instructions per permutation instead of about 22k.
 //
+// - grind searches nonces in one launch: thread t tries t, t + T, t + 2T,
+//   ... in increasing order, records a hit with atomicMin and stops, and
+//   stops too once its next nonce exceeds the smallest hit so far.  Every
+//   nonce below the final minimum has then been tried by its thread, so the
+//   result is the smallest hit, as in a scan of batches in order.  The
+//   expected work is 2^pow_bits permutations, a fraction of one wave of T.
+//
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() so the caller can raise.
 
@@ -63,6 +73,7 @@ constexpr int STAGE_STRIDE = RATE + 1;  // padded row of a staged chunk
 constexpr int MAX_LEVELS = 3;           // merkle_levels: levels per launch
 constexpr int LEVEL_THREADS = 256;      // one thread per parent
 constexpr int QUAD_WARP_PARENTS = 8;    // four threads per parent: a warp
+constexpr int GRIND_BLOCKS = 512;       // grind: T = GRIND_BLOCKS * THREADS
 
 __constant__ uint64_t c_ext[EXTERNAL_ROUNDS][WIDTH];
 __constant__ uint64_t c_int[INTERNAL_ROUNDS];
@@ -525,6 +536,31 @@ permute_kernel(const uint64_t* __restrict__ in, int64_t b,
   for (int j = 0; j < WIDTH; ++j) out[i * WIDTH + j] = canon(s[j]);
 }
 
+// Nonce search from state[12]: lane `lane` takes the nonce; a nonce hits
+// when lane RATE - 1 of the permuted state is below `bound`.  *best starts
+// at 2^32 (no hit) and ends at the smallest hit.
+__global__ void __launch_bounds__(THREADS)
+grind_kernel(const uint64_t* __restrict__ state, int lane, uint64_t bound,
+             unsigned long long* best) {
+  uint64_t s0[WIDTH];
+#pragma unroll
+  for (int j = 0; j < WIDTH; ++j) s0[j] = state[j];
+  const uint64_t stride = (uint64_t)gridDim.x * blockDim.x;
+  for (uint64_t nonce = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       nonce < (1ull << 32); nonce += stride) {
+    // a stale read only delays the stop: the minimum never grows
+    if (nonce > *(volatile unsigned long long*)best) return;
+    uint64_t s[WIDTH];
+#pragma unroll
+    for (int j = 0; j < WIDTH; ++j) s[j] = j == lane ? nonce : s0[j];
+    permute(s);
+    if (canon(s[RATE - 1]) < bound) {
+      atomicMin(best, (unsigned long long)nonce);
+      return;
+    }
+  }
+}
+
 inline unsigned blocks_for(int64_t n) {
   return (unsigned)((n + THREADS - 1) / THREADS);
 }
@@ -587,6 +623,16 @@ int p2_permute(const void* in, int64_t b, void* out, void* stream) {
   if (b > 0)
     permute_kernel<<<blocks_for(b), THREADS, 0, (cudaStream_t)stream>>>(
         (const uint64_t*)in, b, (uint64_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// state: (12,) on the device; best: one u64 on the device, set to 2^32 by
+// the caller (the launch keeps no state between calls).
+int p2_grind(const void* state, int lane, uint64_t bound, void* best,
+             void* stream) {
+  if (lane < 0 || lane >= RATE) return (int)cudaErrorInvalidValue;
+  grind_kernel<<<GRIND_BLOCKS, THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint64_t*)state, lane, bound, (unsigned long long*)best);
   return (int)cudaGetLastError();
 }
 

@@ -82,17 +82,29 @@ def is_zero(x):
     return (x[0] == 0) & (x[1] == 0)
 
 
-def powers(z, n: int, device):
-    """[z^0 .. z^(n-1)] for an ext scalar z (python-int pair), by
-    log-doubling on the device."""
-    re = torch.ones(1, dtype=torch.int64, device=device)
-    im = torch.zeros(1, dtype=torch.int64, device=device)
+def powers_table(z, n: int):
+    """[z^0 .. z^(n-1)] as an ext pair of (n,) tensors, for an ext scalar z
+    held on the device (a pair of 0-d tensors), by log-doubling."""
+    re = torch.ones(1, dtype=torch.int64, device=z[0].device)
+    im = torch.zeros_like(re)
     cur = z
     while re.shape[0] < n:
-        nre, nim = mul((re, im), const(cur, re))
+        nre, nim = mul((re, im), cur)
         re, im = torch.cat([re, nre]), torch.cat([im, nim])
-        cur = e_mul(cur, cur)
+        cur = mul(cur, cur)
     return re[:n], im[:n]
+
+
+def powers(z, n: int, device):
+    """[z^0 .. z^(n-1)] for an ext scalar z given as a python-int pair."""
+    return powers_table((gl.const(z[0], device=device),
+                         gl.const(z[1], device=device)), n)
+
+
+def dot(ys, alphas):
+    """sum_i alphas_i * ys_i over ext pairs of (k,) tensors -> an ext scalar
+    (pair of 0-d tensors): one vector multiply, then a halving sum."""
+    return tuple(gl.sum_axis(c) for c in mul(ys, alphas))
 
 
 # Host scalar extension ops on python-int pairs (for the challenger/verifier).

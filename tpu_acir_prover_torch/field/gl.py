@@ -43,9 +43,12 @@ def s64(v: int) -> int:
 
 
 def const(v: int, like: torch.Tensor = None, device=None) -> torch.Tensor:
-    """A 0-d tensor holding the field value ``v`` on ``like``'s device."""
+    """A 0-d tensor holding the field value ``v`` on ``like``'s device.
+
+    A fill on the device, not a copy from the host: it neither waits for
+    the device nor breaks the capture of a CUDA graph."""
     dev = like.device if like is not None else device
-    return torch.tensor(s64(int(v) % P), dtype=torch.int64, device=dev)
+    return torch.full((), s64(int(v) % P), dtype=torch.int64, device=dev)
 
 
 def from_u64(a: np.ndarray, device) -> torch.Tensor:

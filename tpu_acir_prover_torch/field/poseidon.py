@@ -185,6 +185,27 @@ def two_to_one_levels(child: torch.Tensor, n_levels: int) -> list:
     return levels[1:]
 
 
+# most nonces one step of the plain grind tries
+GRIND_BATCH = 1 << 17
+
+
+def grind(state: torch.Tensor, lane: int, pow_bits: int) -> torch.Tensor:
+    """Proof-of-work search: the smallest nonce n < 2^32 for which lane
+    RATE - 1 of ``permute(state)``, with lane ``lane`` of the (12,) state
+    set to n, is below 2^(64 - pow_bits), as a 0-d tensor (2^32 if there is
+    none).  Nonces go in batches, in increasing order, and the first hit
+    wins; reading the hit back to the host ends each batch."""
+    batch = min(GRIND_BATCH, 1 << (pow_bits + 2))
+    bound = gl.const(1 << (64 - pow_bits), state)
+    for start in range(0, 1 << 32, batch):
+        st = state.repeat(batch, 1)
+        st[:, lane] = start + torch.arange(batch, device=state.device)
+        ok = gl.ult(permute(st)[:, RATE - 1], bound)
+        if bool(ok.any()):
+            return start + ok.to(torch.int8).argmax()
+    return torch.full((), 1 << 32, dtype=torch.int64, device=state.device)
+
+
 # ---------------------------------------------------------------------------
 # Scalar (python-int) permutation for the host challenger and proof
 # verification paths.

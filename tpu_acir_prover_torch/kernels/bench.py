@@ -10,8 +10,8 @@ on inputs made from a seed:
 - ``merkle_levels`` of a 2^20-leaf tree up to its 16-digest cap (an oracle
   commit of the ECDSA proof) and of the 12 FRI-layer trees (2^19 .. 2^8
   leaves, same cap);
-- ``permute`` at one grind launch, (2^17, 12), and on one state: the latency
-  of a permutation, the floor of a Merkle level.
+- ``permute`` on (2^17, 12) states, and on one state: the latency of a
+  permutation, the floor of a Merkle level and the transcript's duplex.
 
 These go through ``leaf_hash``, ``merkle_levels`` and ``permute`` alone, so
 the script also times an earlier checkout of the port: run it by path with

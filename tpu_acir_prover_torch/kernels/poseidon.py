@@ -7,7 +7,9 @@ Each wrapper takes ``int64`` tensors holding u64 field bits:
   ``(N / 2, 4)`` .. ``(N / 2^n, 4)``, several levels per launch, a narrow
   level with four threads per permutation (each launch counts under
   ``two_to_one_level``, the name of the Pallas kernel it replaces);
-- ``permute``: ``(B, 12)`` states -> ``(B, 12)``.
+- ``permute``: ``(B, 12)`` states -> ``(B, 12)``;
+- ``grind``: the proof-of-work search from a ``(12,)`` sponge state, in one
+  launch with no host loop, so that a CUDA graph can hold it.
 
 A CPU tensor goes to the plain twin in ``field/poseidon.py``.  A CUDA
 tensor goes to the kernel, or the wrapper raises: there is no fallback.
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 
 from ..field import poseidon as plain
-from ..field.poseidon import (DIAG_M1, DIGEST, INTERNAL_CONSTANTS,
+from ..field.poseidon import (DIAG_M1, DIGEST, INTERNAL_CONSTANTS, RATE,
                               ROUND_CONSTANTS, WIDTH)
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -48,7 +50,8 @@ LEVELS_PER_LAUNCH = 2
 NARROW_CHILDREN = 1 << 15
 NARROW_LEVELS = 3
 
-launches = {"leaf_hash": 0, "two_to_one_level": 0, "permute": 0}
+launches = {"leaf_hash": 0, "two_to_one_level": 0, "permute": 0,
+            "grind": 0}
 
 _lib = None
 _ready_devices = set()
@@ -111,8 +114,9 @@ def _load():
     lib.p2_leaf_hash.argtypes = [vp, i64, ci, vp, vp]
     lib.p2_merkle_levels.argtypes = [vp, i64, ci, ctypes.POINTER(vp), ci, vp]
     lib.p2_permute.argtypes = [vp, i64, vp, vp]
+    lib.p2_grind.argtypes = [vp, ci, ctypes.c_uint64, vp, vp]
     for fn in (lib.p2_set_constants, lib.p2_leaf_hash, lib.p2_merkle_levels,
-               lib.p2_permute):
+               lib.p2_permute, lib.p2_grind):
         fn.restype = ctypes.c_int
     lib.p2_error_string.argtypes = [ctypes.c_int]
     lib.p2_error_string.restype = ctypes.c_char_p
@@ -216,3 +220,18 @@ def permute(states: torch.Tensor) -> torch.Tensor:
     launches["permute"] += 1
     return out
 
+
+def grind(state: torch.Tensor, lane: int, pow_bits: int) -> torch.Tensor:
+    """The smallest nonce n < 2^32 for which lane RATE - 1 of the permuted
+    ``(12,)`` state, with lane ``lane`` set to n, is below 2^(64 -
+    pow_bits), as a 0-d tensor on the state's device (2^32 if none)."""
+    ok = state.dim() == 1 and state.shape[0] == WIDTH and \
+        0 <= lane < RATE and 1 <= pow_bits <= 32
+    if not _route(state, ok, "grind"):
+        return plain.grind(state, lane, pow_bits)
+    lib = _lib_for(state)
+    best = torch.full((1,), 1 << 32, dtype=torch.int64, device=state.device)
+    _check(lib, lib.p2_grind(state.data_ptr(), lane, 1 << (64 - pow_bits),
+                             best.data_ptr(), _stream(state)), "grind")
+    launches["grind"] += 1
+    return best.reshape(())

@@ -32,6 +32,17 @@ def merkle_levels(leaf: torch.Tensor, cap_size: int) -> List[torch.Tensor]:
     return [leaf] + kp.two_to_one_levels(leaf, (m // cap_size).bit_length() - 1)
 
 
+def gather_paths(levels: List[torch.Tensor], idx: torch.Tensor):
+    """Sibling digests of the leaves at ``idx`` (a device index tensor) on
+    every level below the cap: a list over levels of (q, 4) tensors."""
+    out = []
+    cur = idx
+    for lev in levels[:-1]:
+        out.append(lev.index_select(0, cur ^ 1))
+        cur = cur >> 1
+    return out
+
+
 class MerkleTree:
     """Committed (M, C) matrix and its digest levels, on the device."""
 
@@ -43,9 +54,13 @@ class MerkleTree:
     def num_leaves(self) -> int:
         return self.leaves.shape[0]
 
+    @property
+    def cap(self) -> torch.Tensor:
+        return self.levels[-1]
+
     def cap_u64(self) -> np.ndarray:
         """Cap digests as host uint64 (cap_size, 4)."""
-        return gl.to_u64(self.levels[-1])
+        return gl.to_u64(self.cap)
 
     def rows_and_paths(self, indices):
         """Leaf rows (q, C) uint64 and sibling paths (per query, a list of
@@ -53,11 +68,8 @@ class MerkleTree:
         gather per level and one device->host copy per tree."""
         idx = torch.as_tensor(np.asarray(indices, dtype=np.int64),
                               device=self.leaves.device)
-        parts = [self.leaves.index_select(0, idx)]
-        cur = idx
-        for lev in self.levels[:-1]:
-            parts.append(lev.index_select(0, cur ^ 1))
-            cur = cur >> 1
+        parts = [self.leaves.index_select(0, idx)] + \
+            gather_paths(self.levels, idx)
         flat = gl.to_u64(torch.cat(parts, dim=1))
         c = self.leaves.shape[1]
         nlev = len(self.levels) - 1

@@ -11,6 +11,13 @@ Plain torch ops everywhere except Poseidon2, which goes through the
 wrappers in ``kernels/poseidon.py`` (Merkle leaves and levels, the
 proof-of-work grind).  Field ops are exact, so products and sums are
 taken in whatever order is simplest: values do not depend on it.
+
+Each phase is a ``*_body`` function on device tensors whose challenges are
+ext scalars held on the device (pairs of 0-d tensors); it makes no host
+read and copies nothing from the host, so the fused prover
+(``prover/fused.py``) runs the same bodies inside one CUDA graph.  The
+``ProvingKey`` methods of the same names are the per-phase prover's thin
+callers: python-int challenges in, device tensors or python ints out.
 """
 
 from __future__ import annotations
@@ -25,9 +32,8 @@ from ..circuit.builder import (NUM_SELECTORS, SEL_QLK, lookup_groups,
 from ..circuit.compile import CompiledCircuit, powers_u64
 from ..field import ext as E
 from ..field import gl
-from ..field.ext import e_add, e_mul, e_pow
+from ..field.ext import e_mul
 from ..field.gl import MULTIPLICATIVE_GENERATOR, P, root_of_unity, s_inv
-from ..field.poseidon import RATE
 from ..kernels import poseidon as kp
 from ..utils.timing import PhaseTimer
 from .challenger import Challenger
@@ -41,8 +47,6 @@ from .proof import (FriStep, Openings, OracleOpening, Proof, QueryRound,
 NUM_CHUNKS = 6  # quotient degree < 6n for constraint degree <= 7 at rate 8
 # LDE rows per quotient evaluation step; bounds the step's temporaries
 QUOTIENT_CHUNK = 1 << 18
-# most nonces one grind launch tries
-GRIND_BATCH = 1 << 17
 
 
 def resolve_device(device) -> torch.device:
@@ -141,6 +145,118 @@ def lookup_factors(wires, lam):
     return (gl.sub(lam[0], wires), lam[1].expand(wires.shape))
 
 
+def round2_body(pk, wires, beta, gamma, lam):
+    """Z, partial products B_j and (with lookups) the LogUp helpers h_g,
+    h_T and running sum S, as an (n, 2 * num_z_ext) interleaved base
+    matrix.  wires: (n, W [+1]), multiplicity column last; lam is None
+    without lookups."""
+    W, K = pk.W, pk.K
+    w = wires[:, :W]
+    nums, dens = perm_group_products(w, pk.sigma, pk.x_h, pk.k,
+                                     beta, gamma, pk.perm_groups)
+    ratio = E.mul(_fold(E.mul, nums), E.inv(_fold(E.mul, dens)))
+    z = _shift_one(_prefix(E.mul, ratio, (1, 0)), (1, 0))
+    ecols = [z]
+    cn, cd = nums[0], dens[0]
+    for t in range(K - 1):
+        if t:
+            cn, cd = E.mul(cn, nums[t]), E.mul(cd, dens[t])
+        ecols.append(E.mul(z, E.mul(cn, E.inv(cd))))
+    if pk.has_lookups:
+        invs = E.inv(lookup_factors(w, lam))
+        hs = [E.mul_base(_fold(E.add, [_ecol(invs, i)
+                                       for i in range(s, e)]), pk.qlk)
+              for s, e in pk.lk_groups]
+        h_t = E.inv((gl.sub(lam[0], pk.table),
+                     lam[1].expand(pk.table.shape)))
+        delta = E.sub(_fold(E.add, hs), E.mul_base(h_t, wires[:, W]))
+        ecols += hs + [h_t, _shift_one(_prefix(E.add, delta, (0, 0)),
+                                       (0, 0))]
+    return torch.stack([c for e in ecols for c in e], dim=1)
+
+
+def quotient_body(pk, wires_lde, z_lde, pub, beta, gamma, lam, alpha):
+    """Quotient coefficient columns (n, 2 * NUM_CHUNKS): the constraints
+    combined by powers of alpha over the LDE in row chunks of
+    QUOTIENT_CHUNK, times Z_H^-1, then a coset INTT.  pub: the (npub,)
+    public inputs; lam is None without lookups."""
+    n, m = pk.n, pk.m
+    alphas = E.powers_table(alpha, pk.num_constraints)
+    pi = torch.cat([gl.neg(pub), torch.zeros(n - pub.shape[0],
+                                             dtype=torch.int64,
+                                             device=pub.device)])
+    pi_lde = coset_lde(intt(pi.reshape(n, 1)), pk.config.rate_bits)[:, 0]
+    zg = torch.roll(z_lde, -pk.config.rate, dims=0)
+    const = pk.constants_oracle.lde
+    t_re = torch.empty(m, dtype=torch.int64, device=wires_lde.device)
+    t_im = torch.empty_like(t_re)
+    for st in range(0, m, QUOTIENT_CHUNK):
+        sl = slice(st, st + QUOTIENT_CHUNK)
+        t_re[sl], t_im[sl] = pk.quotient_rows(
+            const[sl], wires_lde[sl], z_lde[sl], zg[sl], pi_lde[sl],
+            pk.x_lde[sl], pk.zh_inv_lde[sl], pk.zh_lde[sl],
+            beta, gamma, lam, alphas)
+    t_re, t_im = coset_intt(t_re)[:, 0], coset_intt(t_im)[:, 0]
+    nch = pk.num_chunks
+    return torch.stack([t_re[k * n:(k + 1) * n] for k in range(nch)] +
+                       [t_im[k * n:(k + 1) * n] for k in range(nch)],
+                       dim=1)
+
+
+def open_body(coeffs, pows):
+    """All columns of an (n, C) coefficient matrix evaluated at an ext
+    point, given its (n,) power table: an ext pair of (C,) tensors."""
+    return (gl.sum_axis(gl.mul(coeffs, pows[0][:, None]), 0),
+            gl.sum_axis(gl.mul(coeffs, pows[1][:, None]), 0))
+
+
+def fri_combine_body(pk, lde_list, z_lde, fri_alpha, ys, ys_next, zeta,
+                     gzeta):
+    """F(x) = sum_i a^i (p_i(x) - y_i)/(x - zeta) over the columns of
+    lde_list, plus the same over z_lde's columns at g*zeta, on the LDE,
+    accumulated one oracle at a time.  ys: the ext pair of (ncols,)
+    openings at zeta of lde_list's columns in order; ys_next: z_lde's
+    openings at g*zeta; fri_alpha (a), zeta and gzeta: ext scalars."""
+    ncols = sum(mat.shape[1] for mat in lde_list)
+    a_re, a_im = E.powers_table(fri_alpha, ncols + z_lde.shape[1])
+    y1 = E.dot(ys, (a_re[:ncols], a_im[:ncols]))
+    y2 = E.dot(ys_next, (a_re[ncols:], a_im[ncols:]))
+
+    def combo(mat, base):
+        sl = slice(base, base + mat.shape[1])
+        return (gl.sum_axis(gl.mul(mat, a_re[sl]), 1),
+                gl.sum_axis(gl.mul(mat, a_im[sl]), 1))
+
+    x = pk.x_lde
+    acc, base = None, 0
+    for mat in lde_list:
+        t = combo(mat, base)
+        acc = t if acc is None else E.add(acc, t)
+        base += mat.shape[1]
+
+    def over(num, y, pt):
+        den = (gl.sub(x, pt[0]), gl.neg(pt[1]).expand(x.shape))
+        return E.mul(E.sub(num, y), E.inv(den))
+
+    return E.add(over(acc, y1, zeta), over(combo(z_lde, base), y2, gzeta))
+
+
+def fri_fold_body(values, beta, shift: int):
+    """One FRI fold of (size,) ext values on the coset shift * H_size ->
+    (size/2,) ext values; beta is an ext scalar."""
+    size = values[0].shape[0]
+    h = size // 2
+    dev = values[0].device
+    w_inv = s_inv(root_of_unity(size.bit_length() - 1))
+    inv2x = gl.mul(gl.powers(w_inv, h, dev),
+                   gl.const(s_inv(2 * shift % P), device=dev))
+    v0 = (values[0][:h], values[1][:h])
+    v1 = (values[0][h:], values[1][h:])
+    half = gl.const(_HALF, device=dev)
+    return E.add(E.mul_base(E.add(v0, v1), half),
+                 E.mul(beta, E.mul_base(E.sub(v0, v1), inv2x)))
+
+
 class ProvingKey:
     """Device-resident preprocessed data for one compiled circuit, built
     once and reused across proofs."""
@@ -207,6 +323,8 @@ class ProvingKey:
             constants_cap=[tuple(int(x) for x in d)
                            for d in self.constants_oracle.tree.cap_u64()],
         )
+        # the fused prover's CUDA graph for this key (prover/fused.py)
+        self._captured = None
 
     def _dev(self, u64: np.ndarray) -> torch.Tensor:
         return gl.from_u64(u64, self.device)
@@ -218,12 +336,12 @@ class ProvingKey:
 
     # ---- phases -------------------------------------------------------------
 
-    def build_wires(self, vals: np.ndarray, mcol=None) -> torch.Tensor:
-        """Solved variable vector -> (n, W [+1]) wires matrix, gathered on
-        the device through the (W, n) routing table."""
-        w = self._dev(vals)[self.wire_idx]
+    def build_wires(self, vals: torch.Tensor, mcol=None) -> torch.Tensor:
+        """Solved variable vector (a device tensor) -> (n, W [+1]) wires
+        matrix, gathered on the device through the (W, n) routing table."""
+        w = vals[self.wire_idx]
         if mcol is not None:
-            w = torch.cat([w, self._dev(mcol).reshape(1, self.n)])
+            w = torch.cat([w, mcol.reshape(1, self.n)])
         return w.T.contiguous()
 
     def commit(self, values: torch.Tensor, from_coeffs: bool = False) -> Oracle:
@@ -233,34 +351,8 @@ class ProvingKey:
         return Oracle(coeffs, lde, merkle_tree(lde, self.config.cap_height))
 
     def round2_phase(self, wires, beta, gamma, lam) -> torch.Tensor:
-        """Z, partial products B_j and (with lookups) the LogUp helpers h_g,
-        h_T and running sum S, as an (n, 2 * num_z_ext) interleaved base
-        matrix.  wires: (n, W [+1]), multiplicity column last."""
-        W, K = self.W, self.K
-        beta, gamma = self._ext(beta), self._ext(gamma)
-        w = wires[:, :W]
-        nums, dens = perm_group_products(w, self.sigma, self.x_h, self.k,
-                                         beta, gamma, self.perm_groups)
-        ratio = E.mul(_fold(E.mul, nums), E.inv(_fold(E.mul, dens)))
-        z = _shift_one(_prefix(E.mul, ratio, (1, 0)), (1, 0))
-        ecols = [z]
-        cn, cd = nums[0], dens[0]
-        for t in range(K - 1):
-            if t:
-                cn, cd = E.mul(cn, nums[t]), E.mul(cd, dens[t])
-            ecols.append(E.mul(z, E.mul(cn, E.inv(cd))))
-        if self.has_lookups:
-            lam = self._ext(lam)
-            invs = E.inv(lookup_factors(w, lam))
-            hs = [E.mul_base(_fold(E.add, [_ecol(invs, i)
-                                           for i in range(s, e)]), self.qlk)
-                  for s, e in self.lk_groups]
-            h_t = E.inv((gl.sub(lam[0], self.table),
-                         lam[1].expand(self.table.shape)))
-            delta = E.sub(_fold(E.add, hs), E.mul_base(h_t, wires[:, W]))
-            ecols += hs + [h_t, _shift_one(_prefix(E.add, delta, (0, 0)),
-                                           (0, 0))]
-        return torch.stack([c for e in ecols for c in e], dim=1)
+        return round2_body(self, wires, self._ext(beta), self._ext(gamma),
+                           self._ext(lam) if self.has_lookups else None)
 
     def quotient_rows(self, const, wires, z, zg, pi, x, zh_inv, zh,
                       beta, gamma, lam, alphas):
@@ -316,80 +408,32 @@ class ProvingKey:
             terms.append(a_mul(base_i + nh + 2, E.mul_base(s_ext, l1)))
         return E.mul_base(_fold(E.add, terms), zh_inv)
 
-    def quotient_phase(self, wires_lde, z_lde, pi_vals, beta, gamma, lam,
+    def quotient_phase(self, wires_lde, z_lde, pub_values, beta, gamma, lam,
                        alpha) -> torch.Tensor:
-        """Quotient coefficient columns (n, 2 * NUM_CHUNKS): constraints
-        over the LDE in row chunks of QUOTIENT_CHUNK, then a coset INTT."""
-        n, m = self.n, self.m
-        alphas = [e_pow(alpha, i) for i in range(self.num_constraints)]
-        a = (self._dev(np.array([v[0] for v in alphas], np.uint64)),
-             self._dev(np.array([v[1] for v in alphas], np.uint64)))
-        beta, gamma = self._ext(beta), self._ext(gamma)
-        lam = self._ext(lam or (0, 0))
-        pi_lde = coset_lde(intt(self._dev(pi_vals).reshape(n, 1)),
-                           self.config.rate_bits)[:, 0]
-        zg = torch.roll(z_lde, -self.config.rate, dims=0)
-        const = self.constants_oracle.lde
-        t_re = torch.empty(m, dtype=torch.int64, device=self.device)
-        t_im = torch.empty_like(t_re)
-        for st in range(0, m, QUOTIENT_CHUNK):
-            sl = slice(st, st + QUOTIENT_CHUNK)
-            t_re[sl], t_im[sl] = self.quotient_rows(
-                const[sl], wires_lde[sl], z_lde[sl], zg[sl], pi_lde[sl],
-                self.x_lde[sl], self.zh_inv_lde[sl], self.zh_lde[sl],
-                beta, gamma, lam, a)
-        t_re, t_im = coset_intt(t_re)[:, 0], coset_intt(t_im)[:, 0]
-        nch = self.num_chunks
-        return torch.stack([t_re[k * n:(k + 1) * n] for k in range(nch)] +
-                           [t_im[k * n:(k + 1) * n] for k in range(nch)],
-                           dim=1)
+        pub = self._dev(np.array(pub_values, dtype=np.uint64))
+        return quotient_body(self, wires_lde, z_lde, pub, self._ext(beta),
+                             self._ext(gamma),
+                             self._ext(lam) if self.has_lookups else None,
+                             self._ext(alpha))
 
     def open_at(self, oracle: Oracle, pows):
         """All columns of an oracle evaluated at an ext point, given its
         power table; returns python-int pairs."""
-        c = oracle.coeffs
-        re = gl.sum_axis(gl.mul(c, pows[0][:, None]), 0)
-        im = gl.sum_axis(gl.mul(c, pows[1][:, None]), 0)
-        re64, im64 = gl.to_u64(torch.stack([re, im]))
+        re64, im64 = gl.to_u64(torch.stack(open_body(oracle.coeffs, pows)))
         return [(int(x), int(y)) for x, y in zip(re64, im64)]
 
-    def fri_combine(self, lde_list, alphas, y1, y2, zeta, gzeta, z_lde):
-        """F(x) = sum_i a_i (p_i(x) - y_i)/(x - zeta) + the g*zeta terms, on
-        the LDE, accumulated one oracle at a time."""
-        a_re = self._dev(np.array([v[0] for v in alphas], np.uint64))
-        a_im = self._dev(np.array([v[1] for v in alphas], np.uint64))
+    def fri_combine(self, lde_list, fri_alpha, ys, ys_next, zeta, gzeta,
+                    z_lde):
+        def dev(vals):
+            return tuple(self._dev(np.array([v[i] for v in vals], np.uint64))
+                         for i in (0, 1))
 
-        def combo(mat, base):
-            sl = slice(base, base + mat.shape[1])
-            return (gl.sum_axis(gl.mul(mat, a_re[sl]), 1),
-                    gl.sum_axis(gl.mul(mat, a_im[sl]), 1))
-
-        x = self.x_lde
-        acc, base = None, 0
-        for mat in lde_list:
-            t = combo(mat, base)
-            acc = t if acc is None else E.add(acc, t)
-            base += mat.shape[1]
-
-        def over(num, y, pt):
-            pt = self._ext(pt)
-            den = (gl.sub(x, pt[0]), gl.neg(pt[1]).expand(x.shape))
-            return E.mul(E.sub(num, self._ext(y)), E.inv(den))
-
-        return E.add(over(acc, y1, zeta), over(combo(z_lde, base), y2, gzeta))
+        return fri_combine_body(self, lde_list, z_lde, self._ext(fri_alpha),
+                                dev(ys), dev(ys_next), self._ext(zeta),
+                                self._ext(gzeta))
 
     def fri_fold(self, values, beta, shift: int):
-        """One FRI fold: (size,) ext values -> (size/2,) ext values."""
-        size = values[0].shape[0]
-        h = size // 2
-        w_inv = s_inv(root_of_unity(size.bit_length() - 1))
-        inv2x = gl.mul(gl.powers(w_inv, h, self.device),
-                       gl.const(s_inv(2 * shift % P), device=self.device))
-        v0 = (values[0][:h], values[1][:h])
-        v1 = (values[0][h:], values[1][h:])
-        half = gl.const(_HALF, device=self.device)
-        return E.add(E.mul_base(E.add(v0, v1), half),
-                     E.mul(self._ext(beta), E.mul_base(E.sub(v0, v1), inv2x)))
+        return fri_fold_body(values, self._ext(beta), shift)
 
     def fri_commit_layer(self, values) -> MerkleTree:
         """FRI layer tree: leaf j packs (F(x_j), F(-x_j)) as 4 columns."""
@@ -400,26 +444,16 @@ class ProvingKey:
 
     def grind(self, challenger: Challenger, pow_bits: int) -> int:
         """Smallest nonce whose challenge (lane RATE-1 after the duplex) is
-        below 2^(64 - pow_bits), by batched permutations on the device."""
+        below 2^(64 - pow_bits), searched on the device."""
         state = list(challenger.state)
         for i, v in enumerate(challenger.input_buf):
             state[i] = v
-        k = len(challenger.input_buf) + 1
-        assert k <= RATE
-        assert 1 <= pow_bits <= 32, "pow_bits outside [1, 32]"
-        batch = min(GRIND_BATCH, 1 << (pow_bits + 2))
-        base = self._dev(np.array(state, dtype=np.uint64))
-        bound = gl.const(1 << (64 - pow_bits), device=self.device)
-        start = 0
-        while start < (1 << 32):
-            st = base.repeat(batch, 1)
-            st[:, k - 1] = start + torch.arange(batch, device=self.device)
-            ok = gl.ult(kp.permute(st)[:, RATE - 1], bound)
-            hit = int(torch.where(ok.any(), ok.to(torch.int8).argmax(), -1))
-            if hit >= 0:
-                return start + hit
-            start += batch
-        raise RuntimeError("grinding exhausted 32-bit nonces")
+        lane = len(challenger.input_buf)
+        nonce = int(kp.grind(self._dev(np.array(state, dtype=np.uint64)),
+                             lane, pow_bits))
+        if nonce >> 32:
+            raise RuntimeError("grinding exhausted 32-bit nonces")
+        return nonce
 
 
 def prove(pk: ProvingKey, external_values: np.ndarray,
@@ -446,7 +480,8 @@ def prove(pk: ProvingKey, external_values: np.ndarray,
     # ---- phase 1: wire (+ multiplicity) commitment ---------------------------
     # each phase ends in a cap copy to the host, which waits for the device
     with timer.phase("wire_commit"):
-        wires = pk.build_wires(vals, mcol)
+        wires = pk.build_wires(pk._dev(vals),
+                               None if mcol is None else pk._dev(mcol))
         wires_oracle = pk.commit(wires)
         challenger.observe_cap(wires_oracle.tree.cap_u64())
     beta = challenger.get_ext_challenge()
@@ -460,12 +495,9 @@ def prove(pk: ProvingKey, external_values: np.ndarray,
     alpha = challenger.get_ext_challenge()
 
     # ---- phase 3: quotient ------------------------------------------------------
-    pi_vals = np.zeros(n, dtype=np.uint64)
-    for j, pv in enumerate(pub_values):
-        pi_vals[j] = (P - pv) % P
     with timer.phase("quotient"):
-        q_cols = pk.quotient_phase(wires_oracle.lde, z_oracle.lde, pi_vals,
-                                   beta, gamma, lam, alpha)
+        q_cols = pk.quotient_phase(wires_oracle.lde, z_oracle.lde,
+                                   pub_values, beta, gamma, lam, alpha)
         quotient_oracle = pk.commit(q_cols, from_coeffs=True)
         challenger.observe_cap(quotient_oracle.tree.cap_u64())
     zeta = challenger.get_ext_challenge()
@@ -488,20 +520,10 @@ def prove(pk: ProvingKey, external_values: np.ndarray,
     # ---- phase 5: FRI ------------------------------------------------------------
     oracles = [pk.constants_oracle, wires_oracle, z_oracle, quotient_oracle]
     with timer.phase("fri"):
-        lde_list = [o.lde for o in oracles]
-        ncols = sum(p.shape[1] for p in lde_list)
-        zcols = 2 * pk.num_z_ext
         ys = (openings.constants_sigmas + openings.wires + openings.z +
               openings.quotient)
-        alphas = [e_pow(fri_alpha, i) for i in range(ncols + zcols)]
-        y1 = (0, 0)
-        for yv, a in zip(ys, alphas[:ncols]):
-            y1 = e_add(y1, e_mul(yv, a))
-        y2 = (0, 0)
-        for yv, a in zip(openings.z_next, alphas[ncols:]):
-            y2 = e_add(y2, e_mul(yv, a))
-        cur = pk.fri_combine(lde_list, alphas, y1, y2, zeta, gzeta,
-                             z_oracle.lde)
+        cur = pk.fri_combine([o.lde for o in oracles], fri_alpha, ys,
+                             openings.z_next, zeta, gzeta, z_oracle.lde)
         fri_trees = []
         cur_shift = MULTIPLICATIVE_GENERATOR
         size = m
