@@ -21,10 +21,15 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    kernel launches; warm fused and per-phase proofs of the ECDSA circuit in
    turns, three each, with their medians, bytes and peak memory; the
    synchronising calls of each; one replay under ``torch.profiler``: its
-   device operations, device time and the device's idle share;
+   device operations, device time, the device's idle share and each
+   Poseidon2 kernel's count and device time;
 6. kernels: each kernel against its plain torch twin on the card at the
    main path's shapes, bit for bit, with both times and the card's bound
-   for the same work (the grind from the ECDSA proof's own state);
+   for the same work (the grind from the ECDSA proof's own state; the
+   duplex on k = 8 inputs that are views into two tensors, and a replayed
+   CUDA graph of a chain of 223 duplexes, timed and held against the twin's
+   chain, with a latency bound from the measured latency of one dependent
+   Goldilocks product);
 7. profile: one warm per-phase proof under ``torch.profiler``, the device
    time of all kernels and of the Poseidon2 kernels.
 
@@ -53,7 +58,11 @@ PALLAS = "tpu_acir_prover/kernels/poseidon_pallas.py"
 SOURCE = "tpu_acir_prover_torch/csrc/poseidon2.cu"
 REPLACES = {"leaf_hash": f"{PALLAS}:233", "two_to_one_level": f"{PALLAS}:283",
             "permute": f"{PALLAS}:155",
+            "duplex": "tpu_acir_prover/prover/fused.py:81",
             "grind": "tpu_acir_prover/prover/fused.py:195"}
+# kernels with no caller on the main path: the batched permutation (the
+# transcript duplexes with its own kernel)
+OFF_PATH = ("permute",)
 LEAF_WIDTHS = (43, 17, 18, 12, 4)   # the ECDSA circuit's oracle widths
 LEAF_ROWS = 1 << 20                 # its LDE rows at rate 8
 TREE_CAP = 16                       # its Merkle cap (cap height 4)
@@ -61,7 +70,8 @@ PERMUTE_STATES = 1 << 17            # a batch as large as the plain grind's
 POW_BITS = 16                       # STANDARD_CONFIG's
 ALTERNATIONS = 3                    # warm fused / per-phase proofs, in turns
 POSEIDON_KERNELS = ("leaf_hash_kernel", "merkle_levels_kernel",
-                    "permute_kernel", "grind_kernel")  # csrc/poseidon2.cu
+                    "permute_kernel", "duplex_kernel",
+                    "grind_kernel")  # csrc/poseidon2.cu
 
 # The card's bound for a batch of Poseidon2 permutations: the larger of its
 # bytes over the memory rate and its 32-bit multiply-adds over their peak
@@ -71,6 +81,12 @@ POSEIDON_KERNELS = ("leaf_hash_kernel", "merkle_levels_kernel",
 MADDS_PER_PERMUTATION = 736 * 8
 MADDS_PER_S = 132 * 64 * 1.98e9
 BYTES_PER_S = 3.35e12
+# The duplex's bound is one of latency: the dependent Goldilocks products
+# on its critical path (8 external rounds x a three-deep S-box, 22 internal
+# rounds x (S-box + the diagonal product)) times the measured latency of
+# one.  It is bound by operations, their chain rather than their rate, and
+# its record says so in bound_kind.
+DUPLEX_CHAIN_PRODUCTS = 8 * 3 + 22 * (3 + 1)
 
 
 def say(msg):
@@ -124,7 +140,10 @@ def phase_kernels(grind_state, grind_lane):
     grind searches from the ECDSA proof's own state and nonce lane."""
     from tpu_acir_prover_torch.field import poseidon as plain
     from tpu_acir_prover_torch.kernels import poseidon as kp
-    from tpu_acir_prover_torch.kernels.bench import cuda_ms, field_input
+    from tpu_acir_prover_torch.kernels.bench import (DUPLEXES, cuda_ms,
+                                                     duplex_replay,
+                                                     field_input,
+                                                     gl_mul_latency_ms)
     rng = np.random.default_rng(2024)
     dev = torch.device("cuda")
     n_levels = (LEAF_ROWS // TREE_CAP).bit_length() - 1
@@ -145,14 +164,26 @@ def phase_kernels(grind_state, grind_lane):
                   lambda x: plain.two_to_one_levels(x, n_levels),
                   bound(LEAF_ROWS - TREE_CAP,
                         (2 * LEAF_ROWS - TREE_CAP) * 32)))
-    cases.append(("permute", "(1, 12): the transcript's duplex",
-                  field_input(rng, (1, 12), dev),
-                  lambda x: [kp.permute(x)], lambda x: [plain.permute(x)],
-                  bound(1, 12 * 8 * 2)))
     cases.append(("permute", "(2^17, 12)",
                   field_input(rng, (PERMUTE_STATES, 12), dev),
                   lambda x: [kp.permute(x)], lambda x: [plain.permute(x)],
                   bound(PERMUTE_STATES, PERMUTE_STATES * 12 * 8 * 2)))
+    cases.append(("permute", "(1, 12): one state, beside the duplex (the "
+                  "main path no longer launches permute)",
+                  field_input(rng, (1, 12), dev),
+                  lambda x: [kp.permute(x)], lambda x: [plain.permute(x)],
+                  bound(1, 12 * 8 * 2)))
+    # k = 8 inputs: views at nonzero offsets into two tensors
+    a, b = field_input(rng, (9,), dev), field_input(rng, (6,), dev)
+    inputs = [a[1 + i // 2] if i % 2 == 0 else b[5 - i // 2]
+              for i in range(8)]
+    mul_ms = gl_mul_latency_ms(dev)
+    cases.append(("duplex", "(12,) state, 8 inputs by address; ms per "
+                  f"duplex in a replayed graph of {DUPLEXES}",
+                  field_input(rng, (12,), dev),
+                  lambda x: [kp.duplex(x, inputs)],
+                  lambda x: [plain.duplex(x, inputs)],
+                  (DUPLEX_CHAIN_PRODUCTS * mul_ms, "operations")))
     nonce = int(kp.grind(grind_state, grind_lane, POW_BITS))
     # the least work: every nonce up to the smallest hit is tried
     cases.append(("grind", f"ECDSA proof's state, nonce lane {grind_lane}, "
@@ -163,22 +194,33 @@ def phase_kernels(grind_state, grind_lane):
     records = {}
     for name, shape, x, kern, twin, (bound_ms, bound_by) in cases:
         got, want = kern(x), twin(x)
+        ms = cuda_ms(lambda: kern(x), 10)
+        plain_ms = cuda_ms(lambda: twin(x), 1)
+        extra = {}
+        if name == "duplex":
+            # the timed graph is also the one held against the twin
+            extra = {"eager_ms": ms, "gl_mul_latency_ms": mul_ms,
+                     "throughput_bound_ms": bound(1, (12 + 8 + 12) * 8)[0]}
+            ms, chain, chain_twin = duplex_replay(
+                x, field_input(rng, (DUPLEXES, 8), dev))
+            got, want = got + [chain], want + [chain_twin]
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
         if err or len(got) != len(want) or \
                 not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"{name} {shape}: kernel differs from the "
                                  f"plain twin (max abs err {err})")
-        ms = cuda_ms(lambda: kern(x), 10)
-        plain_ms = cuda_ms(lambda: twin(x), 1)
+        kind = "latency" if name == "duplex" else "throughput"
         say(f"[kernels] {name} {shape}: bit-identical to the plain twin; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound")
+            f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, {kind} bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound"
+            + "".join(f"; {k} {v:.6f}" for k, v in extra.items()))
         rec = {"name": name, "route": "cuda", "source": SOURCE,
                "replaces": REPLACES[name], "launches": None,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": None, "shape": shape}
+               "library_ms": None, "shape": shape, "bound_kind": kind,
+               **extra}
         # the record keeps the first (widest) shape; the others ride along
         first = records.setdefault(name, rec)
         if first is not rec:
@@ -270,7 +312,7 @@ def phase_main_path(work):
         f"included) {cold_s:.3f} s, write_vk and verify ok; "
         f"launches {launches} (two_to_one_level: "
         f"{launches['two_to_one_level']})")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k, v in launches.items() if v == 0 and k not in OFF_PATH]
     if missing:
         raise AssertionError(f"main path launched no {missing}")
     if pk._captured is None:
@@ -320,16 +362,17 @@ def phase_fused(pk, ext, data):
         f"{cap.capture_s:.3f} s, instantiate {cap.instantiate_s:.3f} s, pool "
         f"{cap.pool_bytes / 2**30:.3f} GiB kept between replays; kernel "
         f"launches per replay {cap.launches}")
-    missing = [k for k, v in cap.launches.items() if v == 0]
+    missing = [k for k, v in cap.launches.items()
+               if v == 0 and k not in OFF_PATH]
     if missing:
         raise AssertionError(f"the captured graph holds no {missing}")
 
     seen = []
     real_grind = kp.grind
 
-    def spy(state, lane, pow_bits):
+    def spy(state, lane, pow_bits, inputs=()):
         seen.append((state.clone(), lane))
-        return real_grind(state, lane, pow_bits)
+        return real_grind(state, lane, pow_bits, inputs)
 
     times = {"fused": [], "per-phase": []}
     peaks = {"fused": [], "per-phase": []}
@@ -398,12 +441,14 @@ def profile_replay(pk, ext):
             "and idle share not measured")
         return
     wall = _median(walls)
-    per = ", ".join(f"{k} {n}" for k, (n, _) in ours.items())
+    per = ", ".join(f"{k} {n} x = {t / 1e3:.4f} ms" for k, (n, t) in
+                    ours.items())
     say(f"[fused] one replay (inputs in, replay, outputs out): wall "
         f"{wall * 1e3:.1f} ms (median of 3); under the profiler "
         f"{total_n} device operations, {total_us / 1e3:.1f} ms of device "
         f"time, idle share {1 - total_us / 1e6 / wall:.1%}; Poseidon2 "
-        f"kernels in the replay: {per}")
+        f"kernels in the replay (count = device time): {per}; wrapper "
+        f"counts the capture recorded: {cap.launches}")
 
 
 def _device_totals(prof, DeviceType):

@@ -109,20 +109,72 @@ def test_permute_kernel_matches_twin(cuda):
         kp.permute(st.T.contiguous().T)  # not contiguous
 
 
+def _views(n, seed, device):
+    """n 0-d int64 views at nonzero offsets into two distinct tensors."""
+    a = gl.from_u64(_rand_u64(n + 3, seed), device)
+    b = gl.from_u64(_rand_u64(n + 5, seed + 1), device)
+    return [a[2 + i] if i % 2 == 0 else b[n + 4 - i] for i in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(9))
+def test_duplex_kernel_matches_twin(cuda, k):
+    for seed in range(3):
+        state = gl.from_u64(_rand_u64(12, seed=100 * k + seed), cuda)
+        inputs = _views(k, 1000 * k + seed, cuda)
+        n0 = kp.launches["duplex"]
+        got = kp.duplex(state, inputs)
+        assert kp.launches["duplex"] == n0 + 1
+        assert torch.equal(got, plain.duplex(state, inputs)), (k, seed)
+
+
+@pytest.mark.cuda
+def test_duplex_chain_in_a_graph(cuda):
+    """50 duplexes captured in one CUDA graph, each absorbing views into
+    tensors that the graph reads, replayed twice with new values in those
+    tensors: equal to the eager twin each time."""
+    pool = gl.from_u64(_rand_u64((50, 10), seed=7), cuda)
+    state0 = gl.from_u64(_rand_u64(12, seed=8), cuda)
+
+    def chain():
+        st = state0
+        for i in range(50):
+            st = kp.duplex(st, list(pool[i, 1:1 + (i % 9)].unbind()))
+        return st
+
+    chain()  # loads the kernels and the constants, off the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    n0 = kp.launches["duplex"]
+    with torch.cuda.graph(graph):
+        out = chain()
+    assert kp.launches["duplex"] == n0 + 50
+    for seed in (9, 10):
+        pool.copy_(gl.from_u64(_rand_u64((50, 10), seed=seed), cuda))
+        state0.copy_(gl.from_u64(_rand_u64(12, seed=seed + 5), cuda))
+        graph.replay()
+        st = state0
+        for i in range(50):
+            st = plain.duplex(st, list(pool[i, 1:1 + (i % 9)].unbind()))
+        assert torch.equal(out, st), seed
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("pow_bits", [1, 4, 8, 16, 20])
 def test_grind_kernel_matches_twin(cuda, pow_bits):
     """The smallest hit, as the twin's scan of batches in order finds it,
-    for states with 0..7 inputs buffered (the nonce lane)."""
-    for seed in range(3):
-        st = np.random.default_rng(seed).integers(0, P, size=12,
-                                                  dtype=np.uint64)
-        state = gl.from_u64(st, cuda)
-        lane = (3 * seed + pow_bits) % 8
+    for every nonce lane with that many inputs pending (views into other
+    tensors), and from an absorbed state with none pending."""
+    for lane in range(8):
+        st = gl.from_u64(_rand_u64(12, seed=lane + 16 * pow_bits), cuda)
+        inputs = _views(lane, 50 * pow_bits + lane, cuda)
         n0 = kp.launches["grind"]
-        got = kp.grind(state, lane, pow_bits)
+        got = kp.grind(st, lane, pow_bits, inputs)
         assert kp.launches["grind"] == n0 + 1
-        assert int(got) == int(plain.grind(state, lane, pow_bits)) < 1 << 32
+        want = plain.grind(st, lane, pow_bits, inputs)
+        assert int(got) == int(want) < 1 << 32, (pow_bits, lane)
+        got = kp.grind(plain.absorb(st, inputs), lane, pow_bits)
+        assert int(got) == int(want)
 
 
 def _lookup_circuit():
@@ -150,8 +202,11 @@ def test_fused_graph_bytes_equal_per_phase(cuda, name):
     verify(pk.vk, proof)
     assert serialize_proof(proof) == want
     # the proof came from a replay of a captured graph that holds every
-    # kernel of the path
-    assert all(pk._captured.launches[k] > 0 for k in kp.launches)
+    # kernel of the path; the batched permute is not one of them since the
+    # transcript duplexes with its own kernel
+    held = pk._captured.launches
+    assert held["permute"] == 0
+    assert all(held[k] > 0 for k in kp.launches if k != "permute")
 
 
 @pytest.mark.cuda

@@ -12,6 +12,7 @@ CPU (tests/test_fused.py); its numpy ``GraphChallenger`` and the numpy
 import contextlib
 import functools
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -173,6 +174,28 @@ def test_grind_twin_matches_jax(seed, pow_bits):
     assert _key("fibonacci").grind(ours, pow_bits) == want
     ours.observe(want)
     assert ours.get_challenge() < 1 << (64 - pow_bits)
+
+
+@pytest.mark.parametrize("k", range(8))
+def test_grind_with_inputs_matches_jax_grind_graph(k):
+    """The grind wrapper (its plain twin here), given the GraphChallenger's
+    state and its k buffered inputs, finds the nonce of the JAX package's
+    in-graph grind (run eagerly on numpy), and the state it leaves gives a
+    challenge below the bound."""
+    pow_bits = 6 + k % 3
+    vals = _rand((8 * (1 + k % 2) + k,), 70 + k)
+    port = fused.GraphChallenger("cpu")
+    ref = jfused.GraphChallenger(H)
+    port.observe_vec(gl.from_u64(vals, "cpu"))
+    ref.observe_vec(*_limbs(vals))
+    assert len(port.input_buf) == len(ref.input_buf) == k
+    pk = type("Key", (), {"G": G, "H": H})
+    with jax.disable_jit():
+        want = int(jfused.grind_graph(pk, ref, pow_bits, batch=1 << 10))
+    got = kp.grind(port.state, k, pow_bits, port.input_buf)
+    assert int(got) == want
+    port.observe(got)
+    assert int(gl.to_u64(port.get_challenge())) < 1 << (64 - pow_bits)
 
 
 # ---------------------------------------------------------------------------

@@ -88,12 +88,33 @@ def test_two_to_one_matches_ints():
             [int(x) for x in d[i, :4]], [int(x) for x in d[i, 4:]])
 
 
+@pytest.mark.parametrize("k", range(9))
+def test_duplex_twin_matches_permute_ints(k):
+    """The duplex (its plain twin here) on k inputs that are 0-d views at
+    offsets into two tensors, against the JAX package's scalar permutation
+    of the absorbed state and against the twin's own permute."""
+    st = _rand_u64(12, seed=20 + k)
+    a, b = _rand_u64(7, seed=40 + k), _rand_u64(5, seed=60 + k)
+    ta, tb = gl.from_u64(a, "cpu"), gl.from_u64(b, "cpu")
+    inputs = [ta[1 + i // 2] if i % 2 == 0 else tb[3 - i // 2]
+              for i in range(k)]
+    state = gl.from_u64(st, "cpu")
+    got = kp.duplex(state, inputs)
+    want = [int(x) for x in st]
+    want[:k] = [int(gl.to_u64(x)) for x in inputs]
+    assert [int(x) for x in gl.to_u64(got)] == jpz.permute_ints(want)
+    assert torch.equal(got, plain.permute(plain.absorb(state, inputs)))
+    assert torch.equal(state, gl.from_u64(st, "cpu"))  # a new state
+
+
 def test_wrappers_check_inputs_and_count_only_kernel_launches():
     before = dict(kp.launches)
     x = gl.from_u64(_rand_u64((4, 12), seed=3), "cpu")
     kp.permute(x)
     kp.leaf_hash(x)
     kp.two_to_one_levels(x[:, :4], 2)
+    kp.duplex(x[0], list(x[1, :8].unbind()))
+    kp.grind(x[0], 3, 2, list(x[1, :3].unbind()))
     assert kp.launches == before  # CPU tensors run the plain twins
     with pytest.raises(TypeError):
         kp.permute(x.to(torch.int32))
@@ -103,3 +124,24 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
         kp.two_to_one_levels(x[:3, :4], 1)
     with pytest.raises(ValueError):
         kp.leaf_hash(x.to("meta"))
+    # the sponge inputs of duplex and grind: int64, 0-d, at most 8 (at
+    # most the nonce lane for the grind), on the state's device
+    state, one = x[0], x[1, 0]
+    with pytest.raises(TypeError):
+        kp.duplex(state, [one.to(torch.int32)])
+    with pytest.raises(ValueError):
+        kp.duplex(state, [x[1, :1]])
+    with pytest.raises(ValueError):
+        kp.duplex(state, [one] * 9)
+    with pytest.raises(ValueError):
+        kp.duplex(state, [one.to("meta")])
+    with pytest.raises(ValueError):
+        kp.duplex(x[:1], [one])
+    with pytest.raises(TypeError):
+        kp.grind(state, 1, 2, [one.to(torch.int32)])
+    with pytest.raises(ValueError):
+        kp.grind(state, 1, 2, [x[1, :1]])
+    with pytest.raises(ValueError):
+        kp.grind(state, 1, 2, [one, one])
+    with pytest.raises(ValueError):
+        kp.grind(state, 1, 2, [one.to("meta")])

@@ -1,23 +1,28 @@
 // Poseidon2 width 12 over Goldilocks for Hopper (sm_90a): the Merkle leaf
-// sponge, the Merkle levels of a subtree, and the bare permutation.
+// sponge, the Merkle levels of a subtree, the bare permutation, the
+// transcript's duplex and the proof-of-work grind.
 //
 // Replaces the Pallas kernels in tpu_acir_prover/kernels/poseidon_pallas.py:
 //   leaf_hash      <- _leaf_kernel / leaf_hash
 //   merkle_levels  <- _two_to_one_kernel / two_to_one_level, several levels
 //                     per launch (the subtree design that module's docstring
 //                     names merkle_bulk)
-//   permute        <- permute_tile (no pallas_call of its own there; here it
-//                     is the duplex of the Fiat-Shamir transcript)
-//   grind          <- grind_graph in tpu_acir_prover/prover/fused.py (a
-//                     lax.while_loop over batches of permute_tile) and
-//                     ProvingKey.grind in tpu_acir_prover/prover/prove.py
+//   permute        <- permute_tile (no pallas_call of its own there), on a
+//                     batch of states
+// and the JAX package's uses of that permutation in its fused prover,
+// tpu_acir_prover/prover/fused.py:
+//   duplex         <- GraphChallenger._duplex (absorb the buffered inputs,
+//                     then permute one (12,) state)
+//   grind          <- grind_graph (a lax.while_loop over batches of
+//                     permute_tile) and ProvingKey.grind in
+//                     tpu_acir_prover/prover/prove.py
 //
-// What bounds it: 32-bit multiply-adds.  A permutation is 736 Goldilocks
-// products (8 external rounds x 12 S-boxes x 4 for x^7, and 22 internal
-// rounds x (4 + 12)), each a 64x64->128 product of four 32x32->64 partial
-// products (8 32-bit multiply-adds), plus its reduction.  The linear layers
-// are adds.  Memory is far below that: a leaf row of C values is read once
-// and 4 values are written.
+// What bounds the batched kernels: 32-bit multiply-adds.  A permutation is
+// 736 Goldilocks products (8 external rounds x 12 S-boxes x 4 for x^7, and
+// 22 internal rounds x (4 + 12)), each a 64x64->128 product of four
+// 32x32->64 partial products (8 32-bit multiply-adds), plus its reduction.
+// The linear layers are adds.  Memory is far below that: a leaf row of C
+// values is read once and 4 values are written.
 //
 // Design for that bound:
 // - one thread owns one 12-lane state in registers; lane indices are
@@ -47,12 +52,34 @@
 //   by shuffles, and the internal sum is a quad all-reduce.  A thread then
 //   issues about 8k instructions per permutation instead of about 22k.
 //
-// - grind searches nonces in one launch: thread t tries t, t + T, t + 2T,
-//   ... in increasing order, records a hit with atomicMin and stops, and
-//   stops too once its next nonce exceeds the smallest hit so far.  Every
-//   nonce below the final minimum has then been tried by its thread, so the
-//   result is the smallest hit, as in a scan of batches in order.  The
-//   expected work is 2^pow_bits permutations, a fraction of one wave of T.
+// The latency of one permutation: the S-box is x^3 * x^4, three products
+// deep; in the quad and sixteen-thread layouts an internal round sums
+// lanes 1..11 while lane 0's S-box runs, so its critical path is the S-box
+// and the one diagonal product.
+//
+// duplex is one state: nothing to fill the card with, so it is bound by the
+// latency of the dependent products on its critical path, 8 x 3 + 22 x
+// (3 + 1) = 112 of them, not by throughput.  It spreads the permutation
+// over sixteen threads of one warp, lane i on thread i (12..15 idle): M4's
+// row and the circulant sum take their lanes by shuffles, the internal sum
+// is a 16-lane shuffle all-reduce that runs beside lane 0's S-box.  A
+// thread runs one S-box a round instead of twelve (a quad of four threads,
+// three lanes each, measured slower inside a graph replay: PERF.md).  The
+// buffered inputs are read by address inside the kernel (struct Inputs), so
+// the absorb costs no launches of its own.
+//
+// grind is bound by multiply throughput and by the tail of its last wave:
+// every nonce of a wave runs to its end, whether or not a smaller nonce
+// hits.  Its grid is GRIND_BLOCKS_PER_SM blocks per SM, fewer than the SM
+// keeps resident: a wave then covers fewer nonces past the first hit, each
+// at a shorter latency.  It tries one nonce a thread for the first wave,
+// then one nonce a quad, whose permutation has about a third of a thread's
+// latency, so a hit just past the first wave costs a quad wave, not another
+// thread wave (the grid and the one thread wave were chosen by a measured
+// sweep at 16 bits: PERF.md).
+// Warps stop together, once their next nonce is above the smallest hit so
+// far, so every nonce below the final minimum has been tried: the result
+// is the smallest hit, as in a scan of batches in order.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() so the caller can raise.
@@ -73,7 +100,7 @@ constexpr int STAGE_STRIDE = RATE + 1;  // padded row of a staged chunk
 constexpr int MAX_LEVELS = 3;           // merkle_levels: levels per launch
 constexpr int LEVEL_THREADS = 256;      // one thread per parent
 constexpr int QUAD_WARP_PARENTS = 8;    // four threads per parent: a warp
-constexpr int GRIND_BLOCKS = 512;       // grind: T = GRIND_BLOCKS * THREADS
+constexpr int GRIND_BLOCKS_PER_SM = 2;  // grind blocks of THREADS threads
 
 __constant__ uint64_t c_ext[EXTERNAL_ROUNDS][WIDTH];
 __constant__ uint64_t c_int[INTERNAL_ROUNDS];
@@ -236,11 +263,13 @@ __device__ __forceinline__ uint64_t reduce96(Acc a) {
   return r;
 }
 
+// x^7 as x^3 * x^4: four products, three deep (x^2, then x^3 and x^4 side
+// by side, then x^7), one fewer than the chain x^2, x^3, x^6, x^7.
 __device__ __forceinline__ uint64_t sbox(uint64_t x) {
   uint64_t x2 = gl_mul(x, x);
   uint64_t x3 = gl_mul(x2, x);
-  uint64_t x6 = gl_mul(x3, x3);
-  return gl_mul(x6, x);
+  uint64_t x4 = gl_mul(x2, x2);
+  return gl_mul(x3, x4);
 }
 
 // M4 = [[5,7,1,3],[4,6,1,1],[1,3,5,7],[1,1,4,6]] by the paper's add chain,
@@ -282,6 +311,9 @@ __device__ __forceinline__ void external_round(uint64_t s[WIDTH], int r) {
 
 // M_I = all-ones + diag(mu - 1): out_i = (mu_i - 1) * x_i + sum_j x_j, the
 // sum kept in 96 bits (< 12 * 2^64) and added before the one reduction.
+// (Summing lanes 1..11 before lane 0's S-box, as the latency-bound layouts
+// below do, measured slower here: these kernels are bound by instruction
+// throughput.)
 __device__ __forceinline__ void internal_round(uint64_t s[WIDTH], int r) {
   s[0] = sbox(gl_add_rc(s[0], c_int[r]));
   Acc sum = acc(s[0]);
@@ -356,12 +388,17 @@ __device__ __forceinline__ Acc shfl_xor_acc(Acc s, int m, unsigned mask) {
   return Acc{__shfl_xor_sync(mask, s.lo, m), __shfl_xor_sync(mask, s.hi, m)};
 }
 
+// Every thread runs the S-box (thread 0's, on lane 0, is the one kept: in
+// a warp the others would idle through it anyway) while the quad sums
+// lanes 1..11; lane 0 is then broadcast and added in.
 __device__ __forceinline__ void quad_internal_round(uint64_t x[3],
                                                     const Quad& d, int r) {
-  if (d.q == 0) x[0] = sbox(gl_add_rc(x[0], c_int[r]));
-  Acc sum = acc_add(acc_add(acc(x[0]), acc(x[1])), acc(x[2]));
-  sum = acc_add(sum, shfl_xor_acc(sum, 1, d.mask));
-  sum = acc_add(sum, shfl_xor_acc(sum, 2, d.mask));
+  const uint64_t t = sbox(gl_add_rc(x[0], c_int[r]));
+  Acc rest = acc_add(acc_add(acc(d.q == 0 ? 0 : x[0]), acc(x[1])), acc(x[2]));
+  rest = acc_add(rest, shfl_xor_acc(rest, 1, d.mask));
+  rest = acc_add(rest, shfl_xor_acc(rest, 2, d.mask));
+  const Acc sum = acc_add(rest, acc(__shfl_sync(d.mask, t, d.base)));
+  if (d.q == 0) x[0] = t;
 #pragma unroll
   for (int a = 0; a < 3; ++a) x[a] = gl_mul_add(x[a], d.dm1[a], sum);
 }
@@ -375,6 +412,99 @@ __device__ __forceinline__ void permute_quad(uint64_t x[3], const Quad& d) {
 #pragma unroll 1
   for (int r = EXTERNAL_ROUNDS / 2; r < EXTERNAL_ROUNDS; ++r)
     quad_external_round(x, d, r);
+}
+
+// ---- one permutation on sixteen threads, one lane each (the duplex) ----
+
+struct Lane {
+  unsigned mask;   // the block's sixteen threads
+  int i;           // this thread's lane; 12..15 carry values nobody reads
+  int row;         // i mod 4: its row of M4
+  int base;        // the first lane of its block of four
+  int col;         // its column of the external round constants
+  uint32_t m4[4];  // row `row` of M4
+  uint64_t dm1;    // mu_i - 1 (0 past lane 11)
+};
+
+__device__ __forceinline__ Lane make_lane() {
+  Lane d;
+  d.mask = 0xFFFFu;
+  d.i = threadIdx.x & 15;
+  d.row = d.i & 3;
+  d.base = d.i & ~3;
+  d.col = min(d.i, WIDTH - 1);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) d.m4[j] = c_m4[d.row][j];
+  d.dm1 = d.i < WIDTH ? c_dm1[d.i] : 0;
+  return d;
+}
+
+__device__ __forceinline__ Acc shfl_acc(Acc s, int src, unsigned mask) {
+  return Acc{__shfl_sync(mask, s.lo, src), __shfl_sync(mask, s.hi, src)};
+}
+
+// Row `row` of M4 on the lane's block takes the block's four lanes; the
+// circulant sum takes that row from each of the three blocks.
+__device__ __forceinline__ void lane_external_matrix(uint64_t& x,
+                                                     const Lane& d) {
+  Acc v = acc(0);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    v = acc_mad_small(v, __shfl_sync(d.mask, x, d.base + j), d.m4[j]);
+  const Acc tot = acc_add(acc_add(shfl_acc(v, d.row, d.mask),
+                                  shfl_acc(v, 4 + d.row, d.mask)),
+                          shfl_acc(v, 8 + d.row, d.mask));
+  x = reduce96(acc_add(v, tot));
+}
+
+__device__ __forceinline__ void lane_external_round(uint64_t& x,
+                                                    const Lane& d, int r) {
+  x = sbox(gl_add_rc(x, c_ext[r][d.col]));
+  lane_external_matrix(x, d);
+}
+
+// Every lane runs the S-box (lane 0's is the one kept) while the sixteen
+// threads sum lanes 1..11 by shuffles; lane 0 is then broadcast, so the
+// critical path is the S-box and one product: four products a round.
+__device__ __forceinline__ void lane_internal_round(uint64_t& x,
+                                                    const Lane& d, int r) {
+  const uint64_t t = sbox(gl_add_rc(x, c_int[r]));
+  Acc rest = acc(d.i >= 1 && d.i < WIDTH ? x : 0);
+#pragma unroll
+  for (int m = 1; m < 16; m <<= 1)
+    rest = acc_add(rest, shfl_xor_acc(rest, m, d.mask));
+  const Acc sum = acc_add(rest, acc(__shfl_sync(d.mask, t, 0)));
+  x = gl_mul_add(d.i == 0 ? t : x, d.dm1, sum);
+}
+
+__device__ __forceinline__ void permute_lanes(uint64_t& x, const Lane& d) {
+  lane_external_matrix(x, d);
+#pragma unroll 1
+  for (int r = 0; r < EXTERNAL_ROUNDS / 2; ++r) lane_external_round(x, d, r);
+#pragma unroll 1
+  for (int r = 0; r < INTERNAL_ROUNDS; ++r) lane_internal_round(x, d, r);
+#pragma unroll 1
+  for (int r = EXTERNAL_ROUNDS / 2; r < EXTERNAL_ROUNDS; ++r)
+    lane_external_round(x, d, r);
+}
+
+// The sponge inputs buffered since the last duplex, by address: views into
+// caps, openings, final coefficients or the nonce.  Under a CUDA graph the
+// addresses are fixed at capture; every input lives in the graph's own
+// pool (or in the proving key, which holds the graph), as the other
+// kernels' operands do, so they stay valid for every replay.
+struct Inputs {
+  const uint64_t* p[RATE];
+};
+
+// Lane j of the state with the k inputs written over lanes 0..k-1.
+__device__ __forceinline__ uint64_t absorbed(const uint64_t* state,
+                                             const Inputs& in, int k, int j) {
+  uint64_t v = state[j];
+#pragma unroll
+  for (int i = 0; i < RATE; ++i)
+    if (i == j && i < k) v = *in.p[i];
+  return v;
 }
 
 __device__ __forceinline__ void cp_async8(uint64_t* smem, const uint64_t* gmem) {
@@ -536,29 +666,76 @@ permute_kernel(const uint64_t* __restrict__ in, int64_t b,
   for (int j = 0; j < WIDTH; ++j) out[i * WIDTH + j] = canon(s[j]);
 }
 
-// Nonce search from state[12]: lane `lane` takes the nonce; a nonce hits
-// when lane RATE - 1 of the permuted state is below `bound`.  *best starts
-// at 2^32 (no hit) and ends at the smallest hit.
+// One duplex of the transcript's (12,) state: lanes 0..k-1 take the k
+// inputs, then the state is permuted into out.  One block of sixteen
+// threads, one lane each.
+__global__ void __launch_bounds__(16)
+duplex_kernel(const uint64_t* __restrict__ state, Inputs in, int k,
+              uint64_t* __restrict__ out) {
+  const Lane d = make_lane();
+  uint64_t x = d.i < WIDTH ? absorbed(state, in, k, d.i) : 0;
+  permute_lanes(x, d);
+  if (d.i < WIDTH) out[d.i] = canon(x);
+}
+
+constexpr unsigned long long NONCES = 1ull << 32;
+constexpr unsigned FULL_WARP = 0xFFFFFFFFu;
+
+// True when every nonce from n on is above the smallest hit so far, for
+// the whole warp at once (lane 0 reads, the warp follows).  A stale read
+// only delays the stop: the minimum never grows.
+__device__ __forceinline__ bool warp_past(uint64_t n,
+                                          const unsigned long long* best) {
+  unsigned long long b =
+      (threadIdx.x & 31) == 0 ? *(const volatile unsigned long long*)best : 0;
+  return n > __shfl_sync(FULL_WARP, b, 0);
+}
+
+// Nonce search from the (12,) state with the k inputs absorbed: lane
+// `lane` takes the nonce; a nonce hits when lane RATE - 1 of the permuted
+// state is below `bound`.  *best starts at 2^32 (no hit) and ends at the
+// smallest hit.  Thread t of the T threads of the grid first tries nonce
+// t; from T on each quad of four threads takes one nonce, warp w the eight
+// at T + 8w, then 8 * T / 32 further on, and so on.  A warp stops once its
+// smallest next nonce is above the smallest hit, so every nonce below the
+// final minimum has been tried: the result is the smallest hit, as in a
+// scan in order.
 __global__ void __launch_bounds__(THREADS)
-grind_kernel(const uint64_t* __restrict__ state, int lane, uint64_t bound,
-             unsigned long long* best) {
-  uint64_t s0[WIDTH];
+grind_kernel(const uint64_t* __restrict__ state, Inputs in, int k, int lane,
+             uint64_t bound, unsigned long long* best) {
+  const uint64_t T = (uint64_t)gridDim.x * blockDim.x;
+  const uint64_t tid = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (warp_past(tid - (threadIdx.x & 31), best)) return;
+  uint64_t s[WIDTH];
 #pragma unroll
-  for (int j = 0; j < WIDTH; ++j) s0[j] = state[j];
-  const uint64_t stride = (uint64_t)gridDim.x * blockDim.x;
-  for (uint64_t nonce = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       nonce < (1ull << 32); nonce += stride) {
-    // a stale read only delays the stop: the minimum never grows
-    if (nonce > *(volatile unsigned long long*)best) return;
-    uint64_t s[WIDTH];
+  for (int j = 0; j < WIDTH; ++j)
+    s[j] = j == lane ? tid : absorbed(state, in, k, j);
+  permute(s);
+  if (canon(s[RATE - 1]) < bound) atomicMin(best, (unsigned long long)tid);
+  const Quad d = make_quad();
+  uint64_t x0[3];
 #pragma unroll
-    for (int j = 0; j < WIDTH; ++j) s[j] = j == lane ? nonce : s0[j];
-    permute(s);
-    if (canon(s[RATE - 1]) < bound) {
-      atomicMin(best, (unsigned long long)nonce);
-      return;
-    }
+  for (int a = 0; a < 3; ++a) x0[a] = absorbed(state, in, k, 4 * a + d.q);
+  const int wl = threadIdx.x & 31;
+  for (uint64_t n0 = T + 8 * (tid >> 5); n0 < NONCES; n0 += 8 * (T >> 5)) {
+    if (warp_past(n0, best)) return;
+    const uint64_t n = n0 + (wl >> 2);
+    uint64_t x[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) x[a] = 4 * a + d.q == lane ? n : x0[a];
+    permute_quad(x, d);
+    // lane RATE - 1 = 4 + 3 is x[1] of the quad's thread 3
+    if (d.q == 3 && canon(x[1]) < bound)
+      atomicMin(best, (unsigned long long)n);
   }
+}
+
+// n dependent products on one thread: (n1 - n0) / (t1 - t0) of two launches
+// is the latency of one gl_mul on the card (kernels/bench.py).
+__global__ void mul_chain_kernel(uint64_t x, int n, uint64_t* out) {
+#pragma unroll 16
+  for (int i = 0; i < n; ++i) x = gl_mul(x, x);
+  *out = canon(x);
 }
 
 inline unsigned blocks_for(int64_t n) {
@@ -626,13 +803,44 @@ int p2_permute(const void* in, int64_t b, void* out, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// state: (12,) on the device; best: one u64 on the device, set to 2^32 by
-// the caller (the launch keeps no state between calls).
-int p2_grind(const void* state, int lane, uint64_t bound, void* best,
-             void* stream) {
-  if (lane < 0 || lane >= RATE) return (int)cudaErrorInvalidValue;
-  grind_kernel<<<GRIND_BLOCKS, THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint64_t*)state, lane, bound, (unsigned long long*)best);
+// state: (12,) on the device; inputs: k <= 8 device addresses of one u64
+// each; out: (12,) on the device, apart from both.
+int p2_duplex(const void* state, const void* const* inputs, int k, void* out,
+              void* stream) {
+  if (k < 0 || k > RATE) return (int)cudaErrorInvalidValue;
+  Inputs in;
+  for (int i = 0; i < RATE; ++i)
+    in.p[i] = i < k ? (const uint64_t*)inputs[i] : nullptr;
+  duplex_kernel<<<1, 16, 0, (cudaStream_t)stream>>>((const uint64_t*)state,
+                                                     in, k, (uint64_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// state: (12,) on the device; inputs: k <= lane device addresses of one u64
+// each, written over lanes 0..k-1; best: one u64 on the device, set to
+// 2^32 by the caller (the launch keeps no state between calls).  The grid
+// is GRIND_BLOCKS_PER_SM blocks on every SM of the current device.
+int p2_grind(const void* state, const void* const* inputs, int k, int lane,
+             uint64_t bound, void* best, void* stream) {
+  if (lane < 0 || lane >= RATE || k < 0 || k > lane)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  Inputs in;
+  for (int i = 0; i < RATE; ++i)
+    in.p[i] = i < k ? (const uint64_t*)inputs[i] : nullptr;
+  grind_kernel<<<(unsigned)(GRIND_BLOCKS_PER_SM * sms), THREADS, 0,
+                 (cudaStream_t)stream>>>((const uint64_t*)state, in, k, lane,
+                                         bound, (unsigned long long*)best);
+  return (int)cudaGetLastError();
+}
+
+// out: one u64 on the device.
+int p2_mul_chain(uint64_t x, int n, void* out, void* stream) {
+  mul_chain_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(x, n, (uint64_t*)out);
   return (int)cudaGetLastError();
 }
 

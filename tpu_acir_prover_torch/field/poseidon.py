@@ -185,16 +185,32 @@ def two_to_one_levels(child: torch.Tensor, n_levels: int) -> list:
     return levels[1:]
 
 
+def absorb(state: torch.Tensor, inputs) -> torch.Tensor:
+    """The (12,) sponge state with the k buffered 0-d inputs written over
+    lanes 0..k-1."""
+    if not inputs:
+        return state
+    return torch.cat([torch.stack(list(inputs)), state[len(inputs):]])
+
+
+def duplex(state: torch.Tensor, inputs) -> torch.Tensor:
+    """One duplex of the (12,) sponge state: absorb the inputs, permute."""
+    return permute(absorb(state, inputs))
+
+
 # most nonces one step of the plain grind tries
 GRIND_BATCH = 1 << 17
 
 
-def grind(state: torch.Tensor, lane: int, pow_bits: int) -> torch.Tensor:
+def grind(state: torch.Tensor, lane: int, pow_bits: int,
+          inputs=()) -> torch.Tensor:
     """Proof-of-work search: the smallest nonce n < 2^32 for which lane
-    RATE - 1 of ``permute(state)``, with lane ``lane`` of the (12,) state
-    set to n, is below 2^(64 - pow_bits), as a 0-d tensor (2^32 if there is
-    none).  Nonces go in batches, in increasing order, and the first hit
-    wins; reading the hit back to the host ends each batch."""
+    RATE - 1 of ``permute(state)``, with the buffered inputs absorbed into
+    the (12,) state and lane ``lane`` set to n, is below 2^(64 -
+    pow_bits), as a 0-d tensor (2^32 if there is none).  Nonces go in
+    batches, in increasing order, and the first hit wins; reading the hit
+    back to the host ends each batch."""
+    state = absorb(state, inputs)
     batch = min(GRIND_BATCH, 1 << (pow_bits + 2))
     bound = gl.const(1 << (64 - pow_bits), state)
     for start in range(0, 1 << 32, batch):

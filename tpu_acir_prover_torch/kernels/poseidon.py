@@ -8,8 +8,11 @@ Each wrapper takes ``int64`` tensors holding u64 field bits:
   level with four threads per permutation (each launch counts under
   ``two_to_one_level``, the name of the Pallas kernel it replaces);
 - ``permute``: ``(B, 12)`` states -> ``(B, 12)``;
-- ``grind``: the proof-of-work search from a ``(12,)`` sponge state, in one
-  launch with no host loop, so that a CUDA graph can hold it.
+- ``duplex``: one duplex of the transcript's ``(12,)`` sponge state, the
+  buffered 0-d inputs read by address inside the kernel;
+- ``grind``: the proof-of-work search from a ``(12,)`` sponge state and its
+  buffered inputs, in one launch with no host loop, so that a CUDA graph can
+  hold it.
 
 A CPU tensor goes to the plain twin in ``field/poseidon.py``.  A CUDA
 tensor goes to the kernel, or the wrapper raises: there is no fallback.
@@ -51,7 +54,7 @@ NARROW_CHILDREN = 1 << 15
 NARROW_LEVELS = 3
 
 launches = {"leaf_hash": 0, "two_to_one_level": 0, "permute": 0,
-            "grind": 0}
+            "duplex": 0, "grind": 0}
 
 _lib = None
 _ready_devices = set()
@@ -114,9 +117,13 @@ def _load():
     lib.p2_leaf_hash.argtypes = [vp, i64, ci, vp, vp]
     lib.p2_merkle_levels.argtypes = [vp, i64, ci, ctypes.POINTER(vp), ci, vp]
     lib.p2_permute.argtypes = [vp, i64, vp, vp]
-    lib.p2_grind.argtypes = [vp, ci, ctypes.c_uint64, vp, vp]
+    lib.p2_duplex.argtypes = [vp, ctypes.POINTER(vp), ci, vp, vp]
+    lib.p2_grind.argtypes = [vp, ctypes.POINTER(vp), ci, ci, ctypes.c_uint64,
+                             vp, vp]
+    lib.p2_mul_chain.argtypes = [ctypes.c_uint64, ci, vp, vp]
     for fn in (lib.p2_set_constants, lib.p2_leaf_hash, lib.p2_merkle_levels,
-               lib.p2_permute, lib.p2_grind):
+               lib.p2_permute, lib.p2_duplex, lib.p2_grind,
+               lib.p2_mul_chain):
         fn.restype = ctypes.c_int
     lib.p2_error_string.argtypes = [ctypes.c_int]
     lib.p2_error_string.restype = ctypes.c_char_p
@@ -162,6 +169,27 @@ def _route(t: torch.Tensor, shape_ok: bool, what: str) -> bool:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_inputs(state: torch.Tensor, inputs, most: int, what: str):
+    """Sponge inputs: at most ``most`` 0-d int64 tensors on the state's
+    device."""
+    if len(inputs) > most:
+        raise ValueError(f"{what}: {len(inputs)} inputs, at most {most}")
+    for x in inputs:
+        if x.dtype != torch.int64:
+            raise TypeError(f"{what}: expected int64 inputs, got {x.dtype}")
+        if x.dim() != 0:
+            raise ValueError(f"{what}: inputs must be 0-d, got "
+                             f"{tuple(x.shape)}")
+        if x.device != state.device:
+            raise ValueError(f"{what}: input on {x.device}, state on "
+                             f"{state.device}")
+
+
+def _addresses(inputs):
+    """The inputs' device addresses as the kernels' array of RATE."""
+    return (ctypes.c_void_p * RATE)(*(x.data_ptr() for x in inputs))
 
 
 def leaf_hash(matrix: torch.Tensor) -> torch.Tensor:
@@ -221,17 +249,37 @@ def permute(states: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def grind(state: torch.Tensor, lane: int, pow_bits: int) -> torch.Tensor:
+def duplex(state: torch.Tensor, inputs) -> torch.Tensor:
+    """One duplex of the ``(12,)`` sponge state: lanes 0..k-1 overwritten by
+    the k <= 8 buffered inputs (0-d tensors on the state's device, read by
+    address), then permuted; returns a new canonical ``(12,)`` state."""
+    _check_inputs(state, inputs, RATE, "duplex")
+    if not _route(state, state.shape == (WIDTH,), "duplex"):
+        return plain.duplex(state, inputs)
+    lib = _lib_for(state)
+    out = torch.empty_like(state)
+    _check(lib, lib.p2_duplex(state.data_ptr(), _addresses(inputs),
+                              len(inputs), out.data_ptr(), _stream(state)),
+           "duplex")
+    launches["duplex"] += 1
+    return out
+
+
+def grind(state: torch.Tensor, lane: int, pow_bits: int,
+          inputs=()) -> torch.Tensor:
     """The smallest nonce n < 2^32 for which lane RATE - 1 of the permuted
-    ``(12,)`` state, with lane ``lane`` set to n, is below 2^(64 -
-    pow_bits), as a 0-d tensor on the state's device (2^32 if none)."""
-    ok = state.dim() == 1 and state.shape[0] == WIDTH and \
-        0 <= lane < RATE and 1 <= pow_bits <= 32
+    ``(12,)`` state, with the buffered inputs over lanes 0..k-1 (k <=
+    ``lane``) and lane ``lane`` set to n, is below 2^(64 - pow_bits), as a
+    0-d tensor on the state's device (2^32 if none)."""
+    ok = state.shape == (WIDTH,) and len(inputs) <= lane < RATE and \
+        1 <= pow_bits <= 32
+    _check_inputs(state, inputs, RATE - 1, "grind")
     if not _route(state, ok, "grind"):
-        return plain.grind(state, lane, pow_bits)
+        return plain.grind(state, lane, pow_bits, inputs)
     lib = _lib_for(state)
     best = torch.full((1,), 1 << 32, dtype=torch.int64, device=state.device)
-    _check(lib, lib.p2_grind(state.data_ptr(), lane, 1 << (64 - pow_bits),
+    _check(lib, lib.p2_grind(state.data_ptr(), _addresses(inputs),
+                             len(inputs), lane, 1 << (64 - pow_bits),
                              best.data_ptr(), _stream(state)), "grind")
     launches["grind"] += 1
     return best.reshape(())

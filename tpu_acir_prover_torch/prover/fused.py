@@ -4,9 +4,10 @@ Counterpart of ``tpu_acir_prover/prover/fused.py``.  The per-phase prover
 (``prove.prove``) reads each Merkle cap, opening and the proof-of-work
 nonce back to the host and runs the Fiat-Shamir transcript there.  Here the
 transcript runs on the device too (``GraphChallenger``, a duplex sponge on
-a (12,) state, its duplex the ``permute`` kernel), the grind is one kernel
-launch, and the query rows and paths are gathered on the device, so the
-body ``_fused_graph`` makes no host read and copies nothing from the host.
+a (12,) state, each duplex one ``duplex`` kernel launch that reads the
+buffered inputs by address), the grind is one kernel launch, and the query
+rows and paths are gathered on the device, so the body ``_fused_graph``
+makes no host read and copies nothing from the host.
 
 On CUDA, ``prove_fused`` captures that body once per proving key as a CUDA
 graph and replays it for every proof: one copy of the inputs in, one
@@ -57,24 +58,13 @@ class GraphChallenger:
         if len(self.input_buf) == RATE:
             self._duplex()
 
-    def observe_const(self, v: int):
-        self.observe(gl.const(v, self.state))
-
     def observe_vec(self, v: torch.Tensor):
         """Observe every element of a tensor, in row-major order."""
         for x in v.reshape(-1).unbind():
             self.observe(x)
 
-    def absorbed(self) -> torch.Tensor:
-        """The state with the buffered inputs written over its first lanes."""
-        if not self.input_buf:
-            return self.state
-        k = len(self.input_buf)
-        return torch.cat([torch.stack(self.input_buf), self.state[k:]])
-
     def _duplex(self):
-        self.state = kp.permute(self.absorbed().reshape(1, WIDTH)).reshape(
-            WIDTH)
+        self.state = kp.duplex(self.state, self.input_buf)
         self.output_buf = list(self.state[:RATE].unbind())
         self.input_buf = []
 
@@ -96,9 +86,8 @@ def _fused_graph(pk: ProvingKey, vals, pub, mcol=None):
     device tensors (and lists of them) that ``_assemble_proof`` reads."""
     n, m = pk.n, pk.m
     ch = GraphChallenger(pk.device)
-    for d in pk.vk.constants_cap:
-        for el in d:
-            ch.observe_const(el)
+    # the device cap that vk.constants_cap was read from: same values
+    ch.observe_vec(pk.constants_oracle.tree.cap)
     ch.observe_vec(pub)
 
     # ---- wires commitment
@@ -155,8 +144,8 @@ def _fused_graph(pk: ProvingKey, vals, pub, mcol=None):
         ch.observe(b)
 
     # ---- proof of work, query indices, query rows and paths
-    pow_witness = kp.grind(ch.absorbed(), len(ch.input_buf),
-                           pk.config.pow_bits)
+    pow_witness = kp.grind(ch.state, len(ch.input_buf), pk.config.pow_bits,
+                           ch.input_buf)
     ch.observe(pow_witness)
     ch.get_challenge()
     indices = torch.stack([ch.get_challenge() for _ in
