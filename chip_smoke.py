@@ -19,24 +19,38 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    flipped;
 5. fused: the graph's capture and instantiate times, its pool and its
    kernel launches; warm fused and per-phase proofs of the ECDSA circuit in
-   turns, three each, with their medians, bytes and peak memory; the
+   turns, two each, with their upper medians, bytes and peak memory; the
    synchronising calls of each; one replay under ``torch.profiler``: its
    device operations, device time, the device's idle share and each
    Poseidon2 kernel's count and device time;
-6. kernels: each kernel against its plain torch twin on the card at the
-   main path's shapes, bit for bit, with both times and the card's bound
-   for the same work (the grind from the ECDSA proof's own state; the
+6. profile: one warm per-phase proof under ``torch.profiler``, the device
+   time of all kernels and of the Poseidon2 kernels;
+7. sharded: ``prove_sharded`` with every shard on cuda:0.  Parity: over 2
+   and 4 shards on the two small circuits, bytes equal to the port's on
+   the CPU.  The ECDSA circuit over 4 shards: key build, two warm proofs
+   with their phases, peak memory and kernel launches (counted from 0 for
+   each proof), bytes equal to the CLI's, beside the per-phase proof of
+   [fused].  The 2^20-row ``mul_chain`` circuit (standard config, LDE 2^23
+   rows): one per-phase proof on a plain key, then over 4 shards (2 if 4
+   run out of memory, with the error printed), bytes equal, both verified.
+   Each of these three paths records the shapes it gives ``leaf_hash`` and
+   ``two_to_one_levels``;
+8. kernels: each kernel against its plain torch twin on the card, bit for
+   bit, with both times and the card's bound for the same work: at the
+   main path's shapes (the grind from the ECDSA proof's own state; the
    duplex on k = 8 inputs that are views into two tensors, and a replayed
    CUDA graph of a chain of 223 duplexes, timed and held against the twin's
    chain, with a latency bound from the measured latency of one dependent
-   Goldilocks product);
-7. profile: one warm per-phase proof under ``torch.profiler``, the device
-   time of all kernels and of the Poseidon2 kernels.
+   Goldilocks product), then at every Merkle-commit shape the three paths
+   of [sharded] recorded: each oracle's LDE block and its subtree.  One
+   record per kernel and shape, with the path that gives it that shape and
+   the kernel's launches in that path's run (the main path's: the CLI's
+   eager proof and the graph's capture; the others': one proof).
 
-The last three lines are a JSON object with a record per kernel, the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.  The
-port needs neither JAX nor the JAX package, and this script makes sure of
-it by blocking both imports.
+The last three lines are a JSON object with a record per kernel and
+shape, the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.  The port needs neither JAX nor the JAX package, and this script
+makes sure of it by blocking both imports.
 """
 
 import sys
@@ -45,6 +59,8 @@ import sys
 sys.modules["jax"] = None
 sys.modules["tpu_acir_prover"] = None
 
+import collections  # noqa: E402
+import contextlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
@@ -68,10 +84,15 @@ LEAF_ROWS = 1 << 20                 # its LDE rows at rate 8
 TREE_CAP = 16                       # its Merkle cap (cap height 4)
 PERMUTE_STATES = 1 << 17            # a batch as large as the plain grind's
 POW_BITS = 16                       # STANDARD_CONFIG's
-ALTERNATIONS = 3                    # warm fused / per-phase proofs, in turns
+ALTERNATIONS = 2                    # warm fused / per-phase proofs, in turns
 POSEIDON_KERNELS = ("leaf_hash_kernel", "merkle_levels_kernel",
                     "permute_kernel", "duplex_kernel",
                     "grind_kernel")  # csrc/poseidon2.cu
+# the sharded and per-phase provers' kernels: their transcript is the host's
+SHARDED_PATH = ("leaf_hash", "two_to_one_level", "grind")
+SHARDS = 4                          # shards of the full-width proofs
+SHARDS_SMALL = (2, 4)               # shards of the parity proofs
+MUL_CHAIN_LOG_N = 20                # bench.py's headline circuit
 
 # The card's bound for a batch of Poseidon2 permutations: the larger of its
 # bytes over the memory rate and its 32-bit multiply-adds over their peak
@@ -102,13 +123,55 @@ def bound(permutations, nbytes):
 
 
 def max_abs_err(got, want):
+    """The largest |kernel - twin| over the outputs' field elements, as
+    integers; only the elements that differ are read back."""
     from tpu_acir_prover_torch.field import gl
     err = 0
     for a, b in zip(got, want):
-        x = gl.to_u64(a).reshape(-1).astype(object)
-        y = gl.to_u64(b).reshape(-1).astype(object)
-        err = max(err, int(abs(x - y).max()) if x.size else 0)
+        if a.shape != b.shape:
+            raise AssertionError(f"shape {tuple(a.shape)} != "
+                                 f"{tuple(b.shape)}")
+        bad = a != b
+        if bool(bad.any()):
+            x = gl.to_u64(a[bad]).astype(object)
+            y = gl.to_u64(b[bad]).astype(object)
+            err = max(err, int(abs(x - y).max()))
     return err
+
+
+def _once_ms(fn):
+    """fn's output and the device time of that one call, in ms."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+@contextlib.contextmanager
+def shapes_seen(log):
+    """While open, counts in ``log`` the calls of ``leaf_hash`` per input
+    shape and of ``two_to_one_levels`` per (children, levels).  The
+    wrappers run unchanged and count their own launches."""
+    from tpu_acir_prover_torch.kernels import poseidon as kp
+    leaf, levels = kp.leaf_hash, kp.two_to_one_levels
+
+    def leaf_spy(matrix):
+        log[("leaf_hash", tuple(matrix.shape))] += 1
+        return leaf(matrix)
+
+    def levels_spy(child, n_levels):
+        log[("two_to_one_level", (child.shape[0], n_levels))] += 1
+        return levels(child, n_levels)
+
+    kp.leaf_hash, kp.two_to_one_levels = leaf_spy, levels_spy
+    try:
+        yield log
+    finally:
+        kp.leaf_hash, kp.two_to_one_levels = leaf, levels
 
 
 def phase_device():
@@ -135,9 +198,52 @@ def phase_build():
         say(f"[build] ptxas: {line}")
 
 
-def phase_kernels(grind_state, grind_lane):
-    """Kernel vs plain twin on the card; returns per-kernel records.  The
-    grind searches from the ECDSA proof's own state and nonce lane."""
+def _path_cases(rng, dev, paths):
+    """Kernel-vs-twin cases at the Merkle-commit shapes each path recorded:
+    leaf_hash on every oracle's (rows, C) LDE block and two_to_one_levels
+    on its digests, rows being the path's LDE rows per shard."""
+    from tpu_acir_prover_torch.field import poseidon as plain
+    from tpu_acir_prover_torch.kernels import poseidon as kp
+    from tpu_acir_prover_torch.kernels.bench import field_input
+    cases, done = [], set()
+    for path in paths:
+        rows = path["rows"]
+        log2 = f"2^{rows.bit_length() - 1}"
+        mine = sorted(k for k in path["shapes"] if k[1][0] == rows)
+        if {name for name, _ in mine} != {"leaf_hash", "two_to_one_level"}:
+            raise AssertionError(f"{path['path']}: no leaf_hash or no "
+                                 f"two_to_one_levels on {rows} rows")
+        for key in mine:
+            if key in done:
+                continue
+            done.add(key)
+            name, shape = key
+            if name == "leaf_hash":
+                c = shape[1]
+                cases.append((
+                    name, f"({log2}, {c})", path, path["shapes"][key],
+                    lambda c=c, rows=rows: field_input(rng, (rows, c), dev),
+                    lambda x: [kp.leaf_hash(x)],
+                    lambda x: [plain.hash_no_pad(x)],
+                    bound(rows * -(-c // 8), rows * (c + 4) * 8)))
+            else:
+                lv = shape[1]
+                cap = rows >> lv
+                cases.append((
+                    name, f"({log2}, 4) leaves -> {lv} levels to {cap} "
+                    "digests", path, path["shapes"][key],
+                    lambda rows=rows: field_input(rng, (rows, 4), dev),
+                    lambda x, lv=lv: kp.two_to_one_levels(x, lv),
+                    lambda x, lv=lv: plain.two_to_one_levels(x, lv),
+                    bound(rows - cap, (2 * rows - cap) * 32)))
+    return cases
+
+
+def phase_kernels(grind_state, grind_lane, main_launches, paths):
+    """Kernel vs plain twin on the card; returns one record per kernel and
+    shape.  The main path's shapes first (the grind searches from the ECDSA
+    proof's own state and nonce lane), then the Merkle-commit shapes the
+    other paths gave the kernels."""
     from tpu_acir_prover_torch.field import poseidon as plain
     from tpu_acir_prover_torch.kernels import poseidon as kp
     from tpu_acir_prover_torch.kernels.bench import (DUPLEXES, cuda_ms,
@@ -146,11 +252,14 @@ def phase_kernels(grind_state, grind_lane):
                                                      gl_mul_latency_ms)
     rng = np.random.default_rng(2024)
     dev = torch.device("cuda")
+    main = {"path": "main: the CLI's ECDSA prove", "launches": main_launches,
+            "launches_in": "the CLI's run (one eager proof, then the "
+            "graph's capture)", "shapes": None}
     n_levels = (LEAF_ROWS // TREE_CAP).bit_length() - 1
     cases = []
     for c in LEAF_WIDTHS:
-        x = field_input(rng, (LEAF_ROWS, c), dev)
-        cases.append(("leaf_hash", f"(2^20, {c})", x,
+        cases.append(("leaf_hash", f"(2^20, {c})", main, None,
+                      lambda c=c: field_input(rng, (LEAF_ROWS, c), dev),
                       lambda x: [kp.leaf_hash(x)],
                       lambda x: [plain.hash_no_pad(x)],
                       bound(LEAF_ROWS * -(-c // 8), LEAF_ROWS * (c + 4) * 8)))
@@ -159,18 +268,18 @@ def phase_kernels(grind_state, grind_lane):
                   f"digest cap ({kp.LEVELS_PER_LAUNCH} levels per launch; "
                   f"from {kp.NARROW_CHILDREN} children up "
                   f"{kp.NARROW_LEVELS} per launch, four threads a parent)",
-                  field_input(rng, (LEAF_ROWS, 4), dev),
+                  main, None, lambda: field_input(rng, (LEAF_ROWS, 4), dev),
                   lambda x: kp.two_to_one_levels(x, n_levels),
                   lambda x: plain.two_to_one_levels(x, n_levels),
                   bound(LEAF_ROWS - TREE_CAP,
                         (2 * LEAF_ROWS - TREE_CAP) * 32)))
-    cases.append(("permute", "(2^17, 12)",
-                  field_input(rng, (PERMUTE_STATES, 12), dev),
+    cases.append(("permute", "(2^17, 12)", main, None,
+                  lambda: field_input(rng, (PERMUTE_STATES, 12), dev),
                   lambda x: [kp.permute(x)], lambda x: [plain.permute(x)],
                   bound(PERMUTE_STATES, PERMUTE_STATES * 12 * 8 * 2)))
     cases.append(("permute", "(1, 12): one state, beside the duplex (the "
-                  "main path no longer launches permute)",
-                  field_input(rng, (1, 12), dev),
+                  "main path no longer launches permute)", main, None,
+                  lambda: field_input(rng, (1, 12), dev),
                   lambda x: [kp.permute(x)], lambda x: [plain.permute(x)],
                   bound(1, 12 * 8 * 2)))
     # k = 8 inputs: views at nonzero offsets into two tensors
@@ -179,23 +288,27 @@ def phase_kernels(grind_state, grind_lane):
               for i in range(8)]
     mul_ms = gl_mul_latency_ms(dev)
     cases.append(("duplex", "(12,) state, 8 inputs by address; ms per "
-                  f"duplex in a replayed graph of {DUPLEXES}",
-                  field_input(rng, (12,), dev),
+                  f"duplex in a replayed graph of {DUPLEXES}", main, None,
+                  lambda: field_input(rng, (12,), dev),
                   lambda x: [kp.duplex(x, inputs)],
                   lambda x: [plain.duplex(x, inputs)],
                   (DUPLEX_CHAIN_PRODUCTS * mul_ms, "operations")))
     nonce = int(kp.grind(grind_state, grind_lane, POW_BITS))
     # the least work: every nonce up to the smallest hit is tried
     cases.append(("grind", f"ECDSA proof's state, nonce lane {grind_lane}, "
-                  f"{POW_BITS} bits: nonce {nonce}", grind_state,
+                  f"{POW_BITS} bits: nonce {nonce}", main, None,
+                  lambda: grind_state,
                   lambda x: [kp.grind(x, grind_lane, POW_BITS)],
                   lambda x: [plain.grind(x, grind_lane, POW_BITS)],
                   bound(nonce + 1, 12 * 8 + 8)))
-    records = {}
-    for name, shape, x, kern, twin, (bound_ms, bound_by) in cases:
-        got, want = kern(x), twin(x)
+    cases += _path_cases(rng, dev, paths)
+    records = []
+    for name, shape, path, calls, make, kern, twin, (bound_ms, bound_by) \
+            in cases:
+        x = make()
+        got = kern(x)
+        want, plain_ms = _once_ms(lambda: twin(x))
         ms = cuda_ms(lambda: kern(x), 10)
-        plain_ms = cuda_ms(lambda: twin(x), 1)
         extra = {}
         if name == "duplex":
             # the timed graph is also the one held against the twin
@@ -205,27 +318,28 @@ def phase_kernels(grind_state, grind_lane):
                 x, field_input(rng, (DUPLEXES, 8), dev))
             got, want = got + [chain], want + [chain_twin]
         torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        if err or len(got) != len(want) or \
+        err = max_abs_err(got, want) if len(got) == len(want) else None
+        if err != 0 or \
                 not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"{name} {shape}: kernel differs from the "
                                  f"plain twin (max abs err {err})")
+        del x, got, want
         kind = "latency" if name == "duplex" else "throughput"
         say(f"[kernels] {name} {shape}: bit-identical to the plain twin; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, {kind} bound "
-            f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound"
+            f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound; "
+            f"{path['path']}: {path['launches'][name]} launches in "
+            f"{path['launches_in']}"
+            + (f", calls at this shape: {calls}" if calls else "")
             + "".join(f"; {k} {v:.6f}" for k, v in extra.items()))
-        rec = {"name": name, "route": "cuda", "source": SOURCE,
-               "replaces": REPLACES[name], "launches": None,
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": None, "shape": shape, "bound_kind": kind,
-               **extra}
-        # the record keeps the first (widest) shape; the others ride along
-        first = records.setdefault(name, rec)
-        if first is not rec:
-            first.setdefault("other_shapes", []).append(
-                {k: rec[k] for k in ("shape", "ms", "plain_ms", "bound_ms")})
+        records.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": path["launches"][name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": shape, "path": path["path"],
+            "launches_in": path["launches_in"], "calls_at_shape": calls,
+            "bound_kind": kind, **extra})
     return records
 
 
@@ -341,6 +455,7 @@ def phase_main_path(work):
 
 
 def _median(xs):
+    """The median; of an even count, the upper one."""
     return sorted(xs)[len(xs) // 2]
 
 
@@ -376,6 +491,7 @@ def phase_fused(pk, ext, data):
 
     times = {"fused": [], "per-phase": []}
     peaks = {"fused": [], "per-phase": []}
+    phase_ms = {"fused": [], "per-phase": []}
     provers = {"fused": prove_fused, "per-phase": prove}
     runs = [name for i in range(ALTERNATIONS) for name in
             (("fused", "per-phase") if i % 2 == 0 else ("per-phase", "fused"))]
@@ -396,6 +512,7 @@ def phase_fused(pk, ext, data):
         if serialize_compressed_proof(compress_proof(pk.vk, proof)) != data:
             raise AssertionError(f"{name} proof differs from the CLI's")
         phases = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timer.phases)
+        phase_ms[name].append(phases)
         say(f"[fused] warm {name} proof {dt:.3f} s ({phases}); peak "
             f"allocated {peaks[name][-1] / 2**30:.3f} GiB; bytes equal to "
             "the CLI's")
@@ -410,7 +527,10 @@ def phase_fused(pk, ext, data):
     say(f"[fused] synchronising calls per proof (sync debug mode): fused "
         f"{n_fused}, per-phase {n_phase}")
     profile_replay(pk, ext)
-    return seen[0]
+    per_phase = {"median_s": _median(times["per-phase"]),
+                 "peak_gib": max(peaks["per-phase"]) / 2**30,
+                 "phases": phase_ms["per-phase"][-1]}
+    return seen[0], per_phase
 
 
 def profile_replay(pk, ext):
@@ -495,18 +615,184 @@ def profile_proof(pk, ext):
         f"time; Poseidon2 kernels {poseidon_ms:.3f} ms ({per})")
 
 
+def _timed_proof(prover, key, ext, tag, log):
+    """One warm proof: (proof, seconds, phases, peak allocated GiB, the
+    kernels' launches in it, counted from 0); the kernels' shapes go to
+    ``log``."""
+    from tpu_acir_prover_torch.kernels import poseidon as kp
+    from tpu_acir_prover_torch.utils.timing import PhaseTimer
+    timer = PhaseTimer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kp.reset_launches()
+    t0 = time.perf_counter()
+    with shapes_seen(log):
+        proof = prover(key, ext, timer=timer)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kp.launches)
+    missing = [k for k in SHARDED_PATH if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{tag} launched no {missing}")
+    phases = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timer.phases)
+    return proof, dt, phases, torch.cuda.max_memory_allocated() / 2**30, \
+        launches
+
+
+def _built(make, tag, log):
+    """A proving key from ``make()``; prints its build time and peak.  The
+    kernels' shapes (the constants oracle's commit) go to ``log``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with shapes_seen(log):
+        key = make()
+    torch.cuda.synchronize()
+    say(f"[sharded] {tag}: key built in {time.perf_counter() - t0:.3f} s, "
+        f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+        "GiB")
+    return key
+
+
+def phase_sharded(pk, ext, data, per_phase):
+    """prove_sharded with every shard on cuda:0: parity on the small
+    circuits, the ECDSA circuit over 4 shards beside the single-device
+    per-phase proof.  Returns that path: the kernels' launches in one
+    proof, the shapes they were given, the LDE rows per shard."""
+    from tpu_acir_prover_torch.parallel.mesh import Mesh
+    from tpu_acir_prover_torch.parallel.prove import (ShardedProvingKey,
+                                                      prove_sharded)
+    from tpu_acir_prover_torch.prover.compress import compress_proof
+    from tpu_acir_prover_torch.prover.config import (STANDARD_CONFIG,
+                                                     TEST_CONFIG)
+    from tpu_acir_prover_torch.prover.prove import ProvingKey, prove
+    from tpu_acir_prover_torch.prover.serialization import (
+        serialize_compressed_proof, serialize_proof)
+    from tpu_acir_prover_torch.prover.verify import verify
+
+    for name, cc, small_ext in _small_circuits():
+        want = serialize_proof(prove(ProvingKey(cc, TEST_CONFIG, device="cpu"),
+                                     small_ext))
+        for shards in SHARDS_SMALL:
+            spk = ShardedProvingKey(cc, TEST_CONFIG,
+                                    mesh=Mesh.on("cuda:0", shards))
+            proof = prove_sharded(spk, small_ext)
+            verify(spk.vk, proof)
+            if serialize_proof(proof) != want:
+                raise AssertionError(f"{name}: sharded proof over {shards} "
+                                     "shards differs from the CPU's")
+        say(f"[sharded] {name} n={cc.n}: prove_sharded over "
+            f"{' and '.join(map(str, SHARDS_SMALL))} shards on cuda:0, "
+            f"{len(want)} bytes equal to the port's on the CPU; verified")
+
+    tag = f"ecdsa_secp256k1 2^{pk.compiled.log_n} over {SHARDS} shards"
+    log = collections.Counter()
+    spk = _built(lambda: ShardedProvingKey(pk.compiled, STANDARD_CONFIG,
+                                           mesh=Mesh.on("cuda:0", SHARDS)),
+                 tag, log)
+    if spk.vk.constants_cap != pk.vk.constants_cap:
+        raise AssertionError("sharded constants cap differs")
+    runs = []
+    for _ in range(2):
+        proof, dt, phases, peak, launches = _timed_proof(prove_sharded, spk,
+                                                         ext, tag, log)
+        if serialize_compressed_proof(compress_proof(spk.vk, proof)) != data:
+            raise AssertionError(f"{tag}: proof differs from the CLI's")
+        runs.append(dt)
+        say(f"[sharded] {tag}: warm proof {dt:.3f} s ({phases}); peak "
+            f"allocated {peak:.3f} GiB; Poseidon2 launches {launches}; "
+            "bytes equal to the CLI's")
+    verify(spk.vk, proof)
+    say(f"[sharded] {tag}: proofs {runs[0]:.3f} s and {runs[1]:.3f} s; "
+        f"beside it the single-device per-phase proof (median of "
+        f"{ALTERNATIONS} in [fused]) {per_phase['median_s']:.3f} s, "
+        f"peak {per_phase['peak_gib']:.3f} GiB ({per_phase['phases']})")
+    return {"path": tag, "launches": launches, "launches_in": "one proof",
+            "shapes": log, "rows": spk.m // SHARDS}
+
+
+def phase_mul_chain():
+    """The 2^20-row mul_chain circuit (bench.py's headline) at
+    STANDARD_CONFIG: one per-phase proof on a plain key, one prove_sharded
+    over SHARDS shards on cuda:0 (over 2 if that runs out of memory); the
+    bytes equal, both verified.  Returns the two paths, as
+    ``phase_sharded`` does."""
+    from tpu_acir_prover_torch.parallel.mesh import Mesh
+    from tpu_acir_prover_torch.parallel.prove import (ShardedProvingKey,
+                                                      prove_sharded)
+    from tpu_acir_prover_torch.prover.config import STANDARD_CONFIG
+    from tpu_acir_prover_torch.prover.prove import ProvingKey, prove
+    from tpu_acir_prover_torch.prover.serialization import serialize_proof
+    from tpu_acir_prover_torch.prover.verify import verify
+    from tpu_acir_prover_torch.utils.bench_circuits import mul_chain_circuit
+
+    cc = mul_chain_circuit(MUL_CHAIN_LOG_N)
+    ext = np.array([], dtype=np.uint64)
+    tag = f"mul_chain 2^{MUL_CHAIN_LOG_N}"
+    log = collections.Counter()
+    pk = _built(lambda: ProvingKey(cc, STANDARD_CONFIG, device="cuda"),
+                f"{tag} on one device", log)
+    proof, dt, phases, peak, launches = _timed_proof(prove, pk, ext, tag, log)
+    paths = [{"path": f"{tag} per-phase on one device",
+              "launches": launches, "launches_in": "one proof", "shapes": log,
+              "rows": pk.m}]
+    verify(pk.vk, proof)
+    want = serialize_proof(proof)
+    say(f"[sharded] {tag} per-phase on one device: proof {dt:.3f} s "
+        f"({phases}); peak allocated {peak:.3f} GiB; launches {launches}; "
+        "verified")
+    del pk, proof
+    torch.cuda.empty_cache()
+    for shards in (SHARDS, 2):
+        stag = f"{tag} over {shards} shards"
+        log = collections.Counter()
+        try:
+            spk = _built(lambda: ShardedProvingKey(
+                cc, STANDARD_CONFIG, mesh=Mesh.on("cuda:0", shards)), stag,
+                log)
+            proof, dt, phases, peak, launches = _timed_proof(
+                prove_sharded, spk, ext, stag, log)
+        except torch.cuda.OutOfMemoryError as e:
+            err = str(e).splitlines()[0]
+        else:
+            verify(spk.vk, proof)
+            if serialize_proof(proof) != want:
+                raise AssertionError(f"{stag}: bytes differ from one "
+                                     "device's")
+            say(f"[sharded] {stag}: proof {dt:.3f} s ({phases}); peak "
+                f"allocated {peak:.3f} GiB; launches {launches}; bytes "
+                "equal to the one-device proof; verified")
+            return paths + [{"path": stag, "launches": launches,
+                             "launches_in": "one proof", "shapes": log,
+                             "rows": spk.m // shards}]
+        spk = proof = None
+        say(f"[sharded] {stag}: out of memory at peak allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB: {err}")
+        torch.cuda.empty_cache()
+    raise AssertionError(f"{tag}: no sharded proof fitted the card")
+
+
 def main():
     smi = phase_device()
     phase_build()
     phase_parity()
     with tempfile.TemporaryDirectory() as work:
         launches, pk, ext, data = phase_main_path(work)
-    grind_state, grind_lane = phase_fused(pk, ext, data)
-    records = phase_kernels(grind_state, grind_lane)
+    (grind_state, grind_lane), per_phase = phase_fused(pk, ext, data)
     profile_proof(pk, ext)
-    for name, rec in records.items():
-        rec["launches"] = launches[name]
-    say(json.dumps({"kernels": list(records.values())}))
+    t0 = time.perf_counter()
+    paths = [phase_sharded(pk, ext, data, per_phase)]
+    # the CLI's key and its graph's pool are not needed any more
+    from tpu_acir_prover_torch import api
+    api._CACHE.clear()
+    del pk
+    torch.cuda.empty_cache()
+    paths += phase_mul_chain()
+    say(f"[sharded] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    records = phase_kernels(grind_state, grind_lane, launches, paths)
+    say(f"[kernels] phase took {time.perf_counter() - t0:.1f} s")
+    say(json.dumps({"kernels": records}))
     say(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

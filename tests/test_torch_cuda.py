@@ -1,6 +1,7 @@
 """The Poseidon2 CUDA kernels against their plain torch twins, on the card,
-bit for bit, and the fused prover's CUDA graph against the per-phase
-prover on the card.
+bit for bit; the fused prover's CUDA graph against the per-phase prover on
+the card; the sharded prover and FRI layer with every shard on the card
+against their CPU runs.
 
 Skips where torch.cuda.is_available() is false.  Imports no JAX, so it also
 runs on a machine without it:
@@ -21,6 +22,11 @@ from tpu_acir_prover_torch.field import gl
 from tpu_acir_prover_torch.field import poseidon as plain
 from tpu_acir_prover_torch.field.gl import P
 from tpu_acir_prover_torch.kernels import poseidon as kp
+from tpu_acir_prover_torch.parallel.fri import (layer_inv2x_padded,
+                                                make_sharded_fri_layer)
+from tpu_acir_prover_torch.parallel.mesh import Mesh
+from tpu_acir_prover_torch.parallel.prove import (ShardedProvingKey,
+                                                  prove_sharded)
 from tpu_acir_prover_torch.prover.config import TEST_CONFIG
 from tpu_acir_prover_torch.prover.fused import prove_fused
 from tpu_acir_prover_torch.prover.merkle import merkle_levels
@@ -207,6 +213,46 @@ def test_fused_graph_bytes_equal_per_phase(cuda, name):
     held = pk._captured.launches
     assert held["permute"] == 0
     assert all(held[k] > 0 for k in kp.launches if k != "permute")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("name", ["fibonacci", "lookup_bits=8"])
+def test_sharded_proof_on_the_card_equals_cpu(cuda, name, shards):
+    """prove_sharded with every shard on the card: the bytes of the port's
+    single-device proof on the CPU, through the kernels."""
+    cc, ext = _small(name)
+    want = serialize_proof(prove(ProvingKey(cc, TEST_CONFIG, device="cpu"),
+                                 ext))
+    mesh = Mesh.on(cuda, shards)
+    spk = ShardedProvingKey(cc, TEST_CONFIG, mesh=mesh)
+    before = dict(kp.launches)
+    proof = prove_sharded(spk, ext)
+    verify(spk.vk, proof)
+    assert serialize_proof(proof) == want
+    for k in ("leaf_hash", "two_to_one_level", "grind"):
+        assert kp.launches[k] > before[k], k
+
+
+@pytest.mark.cuda
+def test_sharded_fri_layer_on_the_card_equals_cpu(cuda):
+    m, cap_height, d = 1 << 14, 4, 4
+    shift = gl.MULTIPLICATIVE_GENERATOR
+    vals = [_rand_u64(m, seed=s) for s in (30, 31)]
+    beta = (int(_rand_u64(1, 32)[0]), int(_rand_u64(1, 33)[0]))
+    inv2x = layer_inv2x_padded(m, shift)
+    got = []
+    for dev in ("cpu", cuda):
+        mesh = Mesh.on(dev, d)
+        run = make_sharded_fri_layer(mesh, m, cap_height)
+        caps, nxt = run(tuple(mesh.scatter(gl.from_u64(v, dev))
+                              for v in vals),
+                        mesh.scatter(gl.from_u64(inv2x, dev)), beta)
+        got.append((caps, [gl.to_u64(torch.cat(c)) for c in nxt]))
+    (caps_cpu, nxt_cpu), (caps_card, nxt_card) = got
+    assert caps_card == caps_cpu and len(caps_cpu) == 16
+    for a, b in zip(nxt_card, nxt_cpu):
+        assert np.array_equal(a, b)
 
 
 @pytest.mark.cuda

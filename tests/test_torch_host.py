@@ -2,7 +2,8 @@
 originals, on the CPU: field scalars and the numpy limb namespace, the
 Poseidon2 constants and int permutation, the ACIR codec, translator and
 circuit compiler (native witness core included), the program factories in
-``utils/circuits.py``, the verifier, compression and serialization.  Also
+``utils/circuits.py``, the benchmark circuit in ``utils/bench_circuits.py``,
+the verifier, compression and serialization.  Also
 the native loader's concurrent build, and that no module of the port
 imports JAX or the JAX package."""
 
@@ -28,6 +29,8 @@ from tpu_acir_prover.prover import verify as jverify
 from tpu_acir_prover.prover.config import TEST_CONFIG as JTEST_CONFIG
 from tpu_acir_prover.prover.prove import ProvingKey as OracleKey
 from tpu_acir_prover.prover.prove import prove as oracle_prove
+from tpu_acir_prover.utils.bench_circuits import \
+    mul_chain_circuit as j_mul_chain_circuit
 from tpu_acir_prover_torch import native
 from tpu_acir_prover_torch.acir import codec
 from tpu_acir_prover_torch.acir.translator import translate_program
@@ -39,6 +42,7 @@ from tpu_acir_prover_torch.field.gl_np import make_gl
 from tpu_acir_prover_torch.prover import compress, serialization
 from tpu_acir_prover_torch.prover import verify as pverify
 from tpu_acir_prover_torch.utils import circuits
+from tpu_acir_prover_torch.utils.bench_circuits import mul_chain_circuit
 
 import factories
 
@@ -141,6 +145,24 @@ def test_translate_and_compile_match(name):
     vals = cc.generate_witness(ext_vals)
     assert np.array_equal(vals, jcc.generate_witness(ext_vals))
     assert cc.check_constraints(vals) is None
+
+
+@pytest.mark.parametrize("log_n", [4, 9])
+def test_bench_circuits_match(log_n):
+    got, want = mul_chain_circuit(log_n), j_mul_chain_circuit(log_n)
+    for f in ("n", "log_n", "num_vars", "k_shifts", "num_public_inputs",
+              "lookup_bits"):
+        assert getattr(got, f) == getattr(want, f), f
+    for f in ("selectors", "wire_vars", "sigma", "external_vars",
+              "public_input_vars"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    assert len(got.gen_batches) == len(want.gen_batches)
+    for a, b in zip(got.gen_batches, want.gen_batches):
+        assert a.op == b.op
+        for f in ("out", "a", "b", "const"):
+            assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    assert np.array_equal(got.generate_witness(np.array([], np.uint64)),
+                          want.generate_witness(np.array([], np.uint64)))
 
 
 @pytest.mark.parametrize("name", ["fibonacci", "ecdsa_secp256k1"])
@@ -249,6 +271,10 @@ def _sources():
 def test_port_imports_neither_jax_nor_the_jax_package():
     banned = ("jax", "jaxlib", "tpu_acir_prover")
     found = []
+    checked = {os.path.relpath(p, ROOT) for p in _sources()}
+    for mod in ("mesh", "pipeline", "fri", "prove"):
+        assert f"tpu_acir_prover_torch/parallel/{mod}.py" in checked, mod
+    assert "tpu_acir_prover_torch/utils/bench_circuits.py" in checked
     for path in _sources():
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -15,8 +15,9 @@ Each wrapper takes ``int64`` tensors holding u64 field bits:
   hold it.
 
 A CPU tensor goes to the plain twin in ``field/poseidon.py``.  A CUDA
-tensor goes to the kernel, or the wrapper raises: there is no fallback.
-``launches`` counts kernel launches per wrapper.
+tensor goes to the kernel, launched on that tensor's card, or the wrapper
+raises: there is no fallback.  ``launches`` counts kernel launches per
+wrapper.
 
 The library is built with ``nvcc`` at first use into ``_build/``, keyed by
 a hash of the sources and flags, and loaded with ctypes; ptxas's register
@@ -171,6 +172,15 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _launch(lib, t: torch.Tensor, what: str, fn, *args):
+    """Launch ``fn`` with ``t``'s device current, on that device's current
+    stream: the kernel runs on the tensor's card, whichever card is
+    current."""
+    with torch.cuda.device(t.device):
+        _check(lib, fn(*args, _stream(t)), what)
+    launches[what] += 1
+
+
 def _check_inputs(state: torch.Tensor, inputs, most: int, what: str):
     """Sponge inputs: at most ``most`` 0-d int64 tensors on the state's
     device."""
@@ -200,9 +210,8 @@ def leaf_hash(matrix: torch.Tensor) -> torch.Tensor:
     lib = _lib_for(matrix)
     m, c = matrix.shape
     out = torch.empty((m, DIGEST), dtype=torch.int64, device=matrix.device)
-    _check(lib, lib.p2_leaf_hash(matrix.data_ptr(), m, c, out.data_ptr(),
-                                 _stream(matrix)), "leaf_hash")
-    launches["leaf_hash"] += 1
+    _launch(lib, matrix, "leaf_hash", lib.p2_leaf_hash, matrix.data_ptr(), m,
+            c, out.data_ptr())
     return out
 
 
@@ -226,10 +235,8 @@ def two_to_one_levels(child: torch.Tensor, n_levels: int):
         outs = [torch.empty((cur.shape[0] >> l, DIGEST), dtype=torch.int64,
                             device=child.device) for l in range(1, k + 1)]
         ptrs = (ctypes.c_void_p * k)(*(o.data_ptr() for o in outs))
-        _check(lib, lib.p2_merkle_levels(cur.data_ptr(), cur.shape[0], k,
-                                         ptrs, int(narrow), _stream(child)),
-               "two_to_one_levels")
-        launches["two_to_one_level"] += 1
+        _launch(lib, child, "two_to_one_level", lib.p2_merkle_levels,
+                cur.data_ptr(), cur.shape[0], k, ptrs, int(narrow))
         levels += outs
         cur = outs[-1]
     return levels
@@ -243,9 +250,8 @@ def permute(states: torch.Tensor) -> torch.Tensor:
     lib = _lib_for(states)
     b = states.shape[0]
     out = torch.empty_like(states)
-    _check(lib, lib.p2_permute(states.data_ptr(), b, out.data_ptr(),
-                               _stream(states)), "permute")
-    launches["permute"] += 1
+    _launch(lib, states, "permute", lib.p2_permute, states.data_ptr(), b,
+            out.data_ptr())
     return out
 
 
@@ -258,10 +264,8 @@ def duplex(state: torch.Tensor, inputs) -> torch.Tensor:
         return plain.duplex(state, inputs)
     lib = _lib_for(state)
     out = torch.empty_like(state)
-    _check(lib, lib.p2_duplex(state.data_ptr(), _addresses(inputs),
-                              len(inputs), out.data_ptr(), _stream(state)),
-           "duplex")
-    launches["duplex"] += 1
+    _launch(lib, state, "duplex", lib.p2_duplex, state.data_ptr(),
+            _addresses(inputs), len(inputs), out.data_ptr())
     return out
 
 
@@ -278,8 +282,7 @@ def grind(state: torch.Tensor, lane: int, pow_bits: int,
         return plain.grind(state, lane, pow_bits, inputs)
     lib = _lib_for(state)
     best = torch.full((1,), 1 << 32, dtype=torch.int64, device=state.device)
-    _check(lib, lib.p2_grind(state.data_ptr(), _addresses(inputs),
-                             len(inputs), lane, 1 << (64 - pow_bits),
-                             best.data_ptr(), _stream(state)), "grind")
-    launches["grind"] += 1
+    _launch(lib, state, "grind", lib.p2_grind, state.data_ptr(),
+            _addresses(inputs), len(inputs), lane, 1 << (64 - pow_bits),
+            best.data_ptr())
     return best.reshape(())

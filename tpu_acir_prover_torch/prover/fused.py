@@ -249,6 +249,9 @@ def prove_fused(pk: ProvingKey, external_values: np.ndarray,
                 timer: PhaseTimer = None) -> Proof:
     """Same proof as ``prove.prove``; on CUDA a replay of the key's graph,
     on the CPU an eager run of the same body."""
+    if not pk.fusable:
+        raise TypeError(f"prove_fused proves on one device; a "
+                        f"{type(pk).__name__} proves with prove_sharded")
     timer = timer or PhaseTimer(enabled=False)
     cc = pk.compiled
     with timer.phase("witness_fill"):

@@ -111,6 +111,12 @@ def _shift_one(x, fill):
                  for c, f in zip(x, fill))
 
 
+def exclusive_scan(op, x, fill):
+    """Exclusive scan of an (n,) ext vector; ``fill`` is the op's neutral
+    as a python-int pair."""
+    return _shift_one(_prefix(op, x, fill), fill)
+
+
 def gate_eval(q, w):
     """sum_j qM_j*w_{2j}*w_{2j+1} + sum_i q_i*w_i + qC on (rows, *) tensors;
     q holds the NUM_SELECTORS selector columns, w the W wire columns."""
@@ -145,34 +151,51 @@ def lookup_factors(wires, lam):
     return (gl.sub(lam[0], wires), lam[1].expand(wires.shape))
 
 
-def round2_body(pk, wires, beta, gamma, lam):
-    """Z, partial products B_j and (with lookups) the LogUp helpers h_g,
-    h_T and running sum S, as an (n, 2 * num_z_ext) interleaved base
-    matrix.  wires: (n, W [+1]), multiplicity column last; lam is None
-    without lookups."""
-    W, K = pk.W, pk.K
+def round2_factors(pk, wires, beta, gamma, lam):
+    """The row-local half of round 2, before its two scans: the step ratio
+    of Z, the per-group products, and with lookups the helpers h_g, h_T and
+    the running sum's step delta (else ``None`` for those three).  wires:
+    (rows, W [+1]), multiplicity column last; lam is None without
+    lookups."""
+    W = pk.W
     w = wires[:, :W]
     nums, dens = perm_group_products(w, pk.sigma, pk.x_h, pk.k,
                                      beta, gamma, pk.perm_groups)
     ratio = E.mul(_fold(E.mul, nums), E.inv(_fold(E.mul, dens)))
-    z = _shift_one(_prefix(E.mul, ratio, (1, 0)), (1, 0))
+    if not pk.has_lookups:
+        return ratio, nums, dens, None, None, None
+    invs = E.inv(lookup_factors(w, lam))
+    hs = [E.mul_base(_fold(E.add, [_ecol(invs, i) for i in range(s, e)]),
+                     pk.qlk)
+          for s, e in pk.lk_groups]
+    h_t = E.inv((gl.sub(lam[0], pk.table), lam[1].expand(pk.table.shape)))
+    delta = E.sub(_fold(E.add, hs), E.mul_base(h_t, wires[:, W]))
+    return ratio, nums, dens, hs, h_t, delta
+
+
+def round2_columns(pk, z, nums, dens, hs, h_t, s_run):
+    """Z, the partial products B_j and (with lookups) h_g, h_T and the
+    running sum S as a (rows, 2 * num_z_ext) interleaved base matrix, from
+    the exclusive scans z and s_run and ``round2_factors``' values."""
     ecols = [z]
     cn, cd = nums[0], dens[0]
-    for t in range(K - 1):
+    for t in range(pk.K - 1):
         if t:
             cn, cd = E.mul(cn, nums[t]), E.mul(cd, dens[t])
         ecols.append(E.mul(z, E.mul(cn, E.inv(cd))))
     if pk.has_lookups:
-        invs = E.inv(lookup_factors(w, lam))
-        hs = [E.mul_base(_fold(E.add, [_ecol(invs, i)
-                                       for i in range(s, e)]), pk.qlk)
-              for s, e in pk.lk_groups]
-        h_t = E.inv((gl.sub(lam[0], pk.table),
-                     lam[1].expand(pk.table.shape)))
-        delta = E.sub(_fold(E.add, hs), E.mul_base(h_t, wires[:, W]))
-        ecols += hs + [h_t, _shift_one(_prefix(E.add, delta, (0, 0)),
-                                       (0, 0))]
+        ecols += hs + [h_t, s_run]
     return torch.stack([c for e in ecols for c in e], dim=1)
+
+
+def round2_body(pk, wires, beta, gamma, lam):
+    """Round 2 on all n rows: the factors, the exclusive scans for Z and S,
+    then the columns (n, 2 * num_z_ext)."""
+    ratio, nums, dens, hs, h_t, delta = round2_factors(pk, wires, beta,
+                                                       gamma, lam)
+    z = exclusive_scan(E.mul, ratio, (1, 0))
+    s_run = exclusive_scan(E.add, delta, (0, 0)) if pk.has_lookups else None
+    return round2_columns(pk, z, nums, dens, hs, h_t, s_run)
 
 
 def quotient_body(pk, wires_lde, z_lde, pub, beta, gamma, lam, alpha):
@@ -261,6 +284,9 @@ class ProvingKey:
     """Device-resident preprocessed data for one compiled circuit, built
     once and reused across proofs."""
 
+    # every tensor of the key lies on self.device, so prove_fused may run it
+    fusable = True
+
     def __init__(self, compiled: CompiledCircuit,
                  config: ProofConfig = STANDARD_CONFIG, *, device):
         self.device = resolve_device(device)
@@ -287,29 +313,34 @@ class ProvingKey:
         if self.has_lookups:
             cols.append(compiled.table.reshape(1, n))
         self.constants_oracle = self.commit(
-            self._dev(np.concatenate(cols, axis=0).T))
+            self._rows(np.concatenate(cols, axis=0).T))
 
-        # domain tables
+        # domain tables, rows first, each an attribute of the key
         self.omega = root_of_unity(compiled.log_n)
         omega_m = root_of_unity(self.m.bit_length() - 1)
         g = MULTIPLICATIVE_GENERATOR
-        self.x_lde = self._dev(_mul_u64(powers_u64(omega_m, self.m), g))
-        self.x_h = self._dev(powers_u64(self.omega, n))
         rate = config.rate
         gn = pow(g, n, P)
         wn = pow(omega_m, n, P)
         zh = [(gn * pow(wn, i, P) - 1) % P for i in range(rate)]
         reps = self.m // rate
-        self.zh_lde = self._dev(np.tile(np.array(zh, np.uint64), reps))
-        self.zh_inv_lde = self._dev(
-            np.tile(np.array([s_inv(v) for v in zh], np.uint64), reps))
-        self.sigma = self._dev(compiled.sigma.T)
+        tables = {
+            "x_lde": _mul_u64(powers_u64(omega_m, self.m), g),
+            "x_h": powers_u64(self.omega, n),
+            "zh_lde": np.tile(np.array(zh, np.uint64), reps),
+            "zh_inv_lde": np.tile(np.array([s_inv(v) for v in zh],
+                                           np.uint64), reps),
+            "sigma": compiled.sigma.T,
+        }
+        if self.has_lookups:
+            tables["table"] = compiled.table
+            tables["qlk"] = compiled.selectors[SEL_QLK]
+        self.domain_tables = tuple(tables)
+        for name, u64 in tables.items():
+            setattr(self, name, self._rows(u64))
         self.k = self._dev(np.array(compiled.k_shifts, dtype=np.uint64))
         self.wire_idx = torch.as_tensor(compiled.wire_vars.astype(np.int64),
                                         device=self.device)
-        if self.has_lookups:
-            self.table = self._dev(compiled.table)
-            self.qlk = self._dev(compiled.selectors[SEL_QLK])
 
         self.vk = VerifyingKey(
             log_n=compiled.log_n, num_wires=W,
@@ -328,6 +359,11 @@ class ProvingKey:
 
     def _dev(self, u64: np.ndarray) -> torch.Tensor:
         return gl.from_u64(u64, self.device)
+
+    def _rows(self, u64: np.ndarray):
+        """A domain-axis table (rows first) on the device; a sharded key
+        places it as row blocks instead."""
+        return self._dev(u64)
 
     def _ext(self, v):
         """Ext scalar (python-int pair) -> pair of 0-d device tensors."""
