@@ -31,21 +31,35 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    with their phases, peak memory and kernel launches (counted from 0 for
    each proof), bytes equal to the CLI's, beside the per-phase proof of
    [fused].  The 2^20-row ``mul_chain`` circuit (standard config, LDE 2^23
-   rows): one per-phase proof on a plain key, then over 4 shards (2 if 4
-   run out of memory, with the error printed), bytes equal, both verified.
-   Each of these three paths records the shapes it gives ``leaf_hash`` and
+   rows): one per-phase proof on a plain key, then ``prove_fused`` on the
+   same key (its eager run, the graph's capture and instantiation, then a
+   warm proof: times, pool, peak memory and the graph's kernel launches),
+   then over 4 shards (2 if 4 run out of memory, with the error printed),
+   bytes equal, all verified; the key build's and the per-phase proof's
+   peaks beside those before the commit ran its NTTs in column blocks.
+   Each of these four paths records the shapes it gives ``leaf_hash`` and
    ``two_to_one_levels``;
-8. kernels: each kernel against its plain torch twin on the card, bit for
+8. scaling: the weak-scaling sweep of ``parallel/scaling.py`` at its
+   defaults (2^10 rows a shard, 1 to 8 shards) on cuda:0, and its line;
+   each point's last proof verified, the one over 8 shards equal to the
+   port's on the CPU; the sweep records its shapes as the paths of
+   [sharded] do;
+9. kernels: each kernel against its plain torch twin on the card, bit for
    bit, with both times and the card's bound for the same work: at the
    main path's shapes (the grind from the ECDSA proof's own state; the
    duplex on k = 8 inputs that are views into two tensors, and a replayed
    CUDA graph of a chain of 223 duplexes, timed and held against the twin's
    chain, with a latency bound from the measured latency of one dependent
-   Goldilocks product), then at every Merkle-commit shape the three paths
-   of [sharded] recorded: each oracle's LDE block and its subtree.  One
-   record per kernel and shape, with the path that gives it that shape and
-   the kernel's launches in that path's run (the main path's: the CLI's
-   eager proof and the graph's capture; the others': one proof).
+   Goldilocks product), then at every Merkle-commit shape the paths of
+   [sharded] and [scaling] recorded: each oracle's LDE block and its
+   subtree (the kernel hashes a 2^23-row block whole; its twin, row-local
+   like it, the first and last 2^18 rows, which it is held to).  One
+   record per kernel and shape, with the first path that gives it that
+   shape and the kernel's launches in that path's run (the main path's:
+   the CLI's eager proof and the graph's capture; the fused 2^20 proof's:
+   one replay, as its capture counted them; the sweep's: all of it; the
+   others': one proof), and in ``also_in`` each later path that gives it
+   the same shape, with that path's launches.
 
 The last three lines are a JSON object with a record per kernel and
 shape, the card's name and power limit, and ``{"ok": true, "device":
@@ -93,6 +107,16 @@ SHARDED_PATH = ("leaf_hash", "two_to_one_level", "grind")
 SHARDS = 4                          # shards of the full-width proofs
 SHARDS_SMALL = (2, 4)               # shards of the parity proofs
 MUL_CHAIN_LOG_N = 20                # bench.py's headline circuit
+# leaf_hash's twin hashes blocks of up to TWIN_WHOLE_ROWS rows whole; of a
+# larger block (2^23 rows at 2^20) only the first and last TWIN_END_ROWS,
+# which still reach past the block's first 2^31 bytes
+TWIN_WHOLE_ROWS = 1 << 21
+TWIN_END_ROWS = 1 << 18
+# the fused prover's kernels: the transcript runs on the card
+FUSED_PATH = ("leaf_hash", "two_to_one_level", "duplex", "grind")
+# the 2^20 mul_chain key build's and per-phase proof's peaks (GiB) before
+# the commit ran its NTTs in column blocks (NVIDIA H100 80GB HBM3, 700 W)
+UNBLOCKED_PEAKS_GIB = {"key": 31.462, "proof": 37.408}
 
 # The card's bound for a batch of Poseidon2 permutations: the larger of its
 # bytes over the memory rate and its 32-bit multiply-adds over their peak
@@ -198,14 +222,25 @@ def phase_build():
         say(f"[build] ptxas: {line}")
 
 
+def _twin_rows(t):
+    """The row blocks of a leaf_hash input or output that its twin is held
+    to: all of it, or past TWIN_WHOLE_ROWS rows its two ends (the hash is
+    row-local, so the kernel's output rows there are the twin's)."""
+    if t.shape[0] <= TWIN_WHOLE_ROWS:
+        return [t]
+    return [t[:TWIN_END_ROWS], t[-TWIN_END_ROWS:]]
+
+
 def _path_cases(rng, dev, paths):
     """Kernel-vs-twin cases at the Merkle-commit shapes each path recorded:
     leaf_hash on every oracle's (rows, C) LDE block and two_to_one_levels
-    on its digests, rows being the path's LDE rows per shard."""
+    on its digests, rows being the path's LDE rows per shard.  A shape
+    that an earlier path gave already is one case; the later paths, their
+    launches and calls go to its list ``also``."""
     from tpu_acir_prover_torch.field import poseidon as plain
     from tpu_acir_prover_torch.kernels import poseidon as kp
     from tpu_acir_prover_torch.kernels.bench import field_input
-    cases, done = [], set()
+    cases, done = [], {}
     for path in paths:
         rows = path["rows"]
         log2 = f"2^{rows.bit_length() - 1}"
@@ -215,17 +250,25 @@ def _path_cases(rng, dev, paths):
                                  f"two_to_one_levels on {rows} rows")
         for key in mine:
             if key in done:
+                done[key].append({
+                    "path": path["path"],
+                    "launches": path["launches"][key[0]],
+                    "launches_in": path["launches_in"],
+                    "calls_at_shape": path["shapes"][key]})
                 continue
-            done.add(key)
+            also = done[key] = []
             name, shape = key
             if name == "leaf_hash":
                 c = shape[1]
+                ends = "" if rows <= TWIN_WHOLE_ROWS else \
+                    f"; the twin on the first and last 2^" \
+                    f"{TWIN_END_ROWS.bit_length() - 1} rows"
                 cases.append((
-                    name, f"({log2}, {c})", path, path["shapes"][key],
+                    name, f"({log2}, {c}){ends}", path, path["shapes"][key],
                     lambda c=c, rows=rows: field_input(rng, (rows, c), dev),
-                    lambda x: [kp.leaf_hash(x)],
-                    lambda x: [plain.hash_no_pad(x)],
-                    bound(rows * -(-c // 8), rows * (c + 4) * 8)))
+                    lambda x: _twin_rows(kp.leaf_hash(x)),
+                    lambda x: [plain.hash_no_pad(b) for b in _twin_rows(x)],
+                    bound(rows * -(-c // 8), rows * (c + 4) * 8), also))
             else:
                 lv = shape[1]
                 cap = rows >> lv
@@ -235,7 +278,7 @@ def _path_cases(rng, dev, paths):
                     lambda rows=rows: field_input(rng, (rows, 4), dev),
                     lambda x, lv=lv: kp.two_to_one_levels(x, lv),
                     lambda x, lv=lv: plain.two_to_one_levels(x, lv),
-                    bound(rows - cap, (2 * rows - cap) * 32)))
+                    bound(rows - cap, (2 * rows - cap) * 32), also))
     return cases
 
 
@@ -301,10 +344,10 @@ def phase_kernels(grind_state, grind_lane, main_launches, paths):
                   lambda x: [kp.grind(x, grind_lane, POW_BITS)],
                   lambda x: [plain.grind(x, grind_lane, POW_BITS)],
                   bound(nonce + 1, 12 * 8 + 8)))
-    cases += _path_cases(rng, dev, paths)
+    cases = [c + ([],) for c in cases] + _path_cases(rng, dev, paths)
     records = []
-    for name, shape, path, calls, make, kern, twin, (bound_ms, bound_by) \
-            in cases:
+    for name, shape, path, calls, make, kern, twin, (bound_ms, bound_by), \
+            also in cases:
         x = make()
         got = kern(x)
         want, plain_ms = _once_ms(lambda: twin(x))
@@ -331,6 +374,9 @@ def phase_kernels(grind_state, grind_lane, main_launches, paths):
             f"{path['path']}: {path['launches'][name]} launches in "
             f"{path['launches_in']}"
             + (f", calls at this shape: {calls}" if calls else "")
+            + "".join(f"; also {a['path']}: {a['launches']} launches in "
+                      f"{a['launches_in']}, calls at this shape: "
+                      f"{a['calls_at_shape']}" for a in also)
             + "".join(f"; {k} {v:.6f}" for k, v in extra.items()))
         records.append({
             "name": name, "route": "cuda", "source": SOURCE,
@@ -339,7 +385,7 @@ def phase_kernels(grind_state, grind_lane, main_launches, paths):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "shape": shape, "path": path["path"],
             "launches_in": path["launches_in"], "calls_at_shape": calls,
-            "bound_kind": kind, **extra})
+            "also_in": also, "bound_kind": kind, **extra})
     return records
 
 
@@ -639,9 +685,10 @@ def _timed_proof(prover, key, ext, tag, log):
         launches
 
 
-def _built(make, tag, log):
-    """A proving key from ``make()``; prints its build time and peak.  The
-    kernels' shapes (the constants oracle's commit) go to ``log``."""
+def _built(make, tag, log, before=None):
+    """A proving key from ``make()``; prints its build time and peak, and
+    ``before``, an earlier peak to hold it against.  The kernels' shapes
+    (the constants oracle's commit) go to ``log``."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -650,7 +697,7 @@ def _built(make, tag, log):
     torch.cuda.synchronize()
     say(f"[sharded] {tag}: key built in {time.perf_counter() - t0:.3f} s, "
         f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} "
-        "GiB")
+        "GiB" + (f" ({before})" if before else ""))
     return key
 
 
@@ -711,12 +758,119 @@ def phase_sharded(pk, ext, data, per_phase):
             "shapes": log, "rows": spk.m // SHARDS}
 
 
+def _fused_mul_chain(pk, ext, want, tag):
+    """``prove_fused`` on the 2^20 mul_chain key: the first proof (an eager
+    run, the graph's capture and instantiation, a replay), then a warm
+    one; bytes equal to the per-phase proof's ``want``, verified.  Returns
+    the path, with one replay's kernel launches (the capture's count)."""
+    from tpu_acir_prover_torch.kernels import poseidon as kp
+    from tpu_acir_prover_torch.prover.fused import prove_fused
+    from tpu_acir_prover_torch.prover.serialization import serialize_proof
+    from tpu_acir_prover_torch.prover.verify import verify
+    from tpu_acir_prover_torch.utils.timing import PhaseTimer
+
+    ftag = f"{tag} fused on one device"
+    log = collections.Counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kp.reset_launches()
+    t0 = time.perf_counter()
+    with shapes_seen(log):
+        first = prove_fused(pk, ext)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    cold_peak = torch.cuda.max_memory_allocated() / 2**30
+    cap = pk._captured
+    if cap is None:
+        raise AssertionError(f"{ftag}: no CUDA graph was captured")
+    missing = [k for k in FUSED_PATH if cap.launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{ftag}: the graph holds no {missing}")
+    say(f"[sharded] {ftag}: first proof {cold_s:.3f} s (eager run, capture "
+        f"{cap.capture_s:.3f} s, instantiate {cap.instantiate_s:.3f} s, one "
+        f"replay), peak allocated {cold_peak:.3f} GiB; graph pool "
+        f"{cap.pool_bytes / 2**30:.3f} GiB kept between replays; kernel "
+        f"launches a replay (the capture's count) {cap.launches}")
+    timer = PhaseTimer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    proof = prove_fused(pk, ext, timer=timer)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for p in (first, proof):
+        verify(pk.vk, p)
+        if serialize_proof(p) != want:
+            raise AssertionError(f"{ftag}: bytes differ from the per-phase "
+                                 "proof's")
+    phases = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timer.phases)
+    say(f"[sharded] {ftag}: warm proof {dt:.3f} s ({phases}); peak "
+        f"allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+        f"besides the pool; both proofs' bytes equal to the per-phase "
+        f"proof's; verified")
+    pk._captured = None
+    return {"path": ftag, "launches": cap.launches,
+            "launches_in": "one replay (the capture's count)", "shapes": log,
+            "rows": pk.m}
+
+
+def phase_scaling():
+    """The weak-scaling sweep of parallel/scaling.py at its defaults, all
+    shards on cuda:0, its kernels' launches counted from 0; each point's
+    last proof verified, the largest point's bytes equal to the port's on
+    the CPU.
+    Returns the sweep as a path, as ``phase_sharded`` does: every point
+    has the same LDE rows a shard."""
+    from tpu_acir_prover_torch.kernels import poseidon as kp
+    from tpu_acir_prover_torch.parallel import scaling
+    from tpu_acir_prover_torch.prover.config import TEST_CONFIG
+    from tpu_acir_prover_torch.prover.prove import ProvingKey, prove
+    from tpu_acir_prover_torch.prover.serialization import serialize_proof
+    from tpu_acir_prover_torch.prover.verify import verify
+
+    points, log = [], collections.Counter()
+    kp.reset_launches()
+    t0 = time.perf_counter()
+    with shapes_seen(log):
+        line = scaling.sweep(
+            "cuda:0", scaling.LOG_PER_SHARD, scaling.REPS,
+            check=lambda spk, proof: points.append(
+                (len(spk.mesh.devices), spk.compiled, spk.vk, proof)))
+    launches = dict(kp.launches)
+    sweep_s = time.perf_counter() - t0
+    missing = [k for k in SHARDED_PATH if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the scaling sweep launched no {missing}")
+    for _, _, vk, proof in points:
+        verify(vk, proof)
+    shards, cc, _, proof = points[-1]
+    t0 = time.perf_counter()
+    want = serialize_proof(prove(ProvingKey(cc, TEST_CONFIG, device="cpu"),
+                                 np.array([], dtype=np.uint64)))
+    if serialize_proof(proof) != want:
+        raise AssertionError(f"scaling sweep over {shards} shards: bytes "
+                             "differ from the port's on the CPU")
+    counts = ", ".join(str(p[0]) for p in points)
+    say(f"[scaling] {json.dumps(line)}")
+    say(f"[scaling] sweep took {sweep_s:.1f} s; launches {launches}; the "
+        f"last proof of each point ({counts} shards) verified; the last "
+        f"over {shards} shards equal to the port's on the CPU (proven there "
+        f"in {time.perf_counter() - t0:.1f} s)")
+    return {"path": f"scaling sweep (2^{scaling.LOG_PER_SHARD} rows a shard, "
+                    f"S = {counts} on cuda:0)",
+            "launches": launches,
+            "launches_in": "the sweep (each point's key build, warm-up and "
+                           f"{scaling.REPS} timed proofs)",
+            "shapes": log,
+            "rows": 1 << (scaling.LOG_PER_SHARD + TEST_CONFIG.rate_bits)}
+
+
 def phase_mul_chain():
     """The 2^20-row mul_chain circuit (bench.py's headline) at
-    STANDARD_CONFIG: one per-phase proof on a plain key, one prove_sharded
-    over SHARDS shards on cuda:0 (over 2 if that runs out of memory); the
-    bytes equal, both verified.  Returns the two paths, as
-    ``phase_sharded`` does."""
+    STANDARD_CONFIG: one per-phase proof on a plain key, the fused prover
+    on the same key, one prove_sharded over SHARDS shards on cuda:0 (over 2
+    if that runs out of memory); the bytes equal, all verified.  Returns
+    the three paths, as ``phase_sharded`` does."""
     from tpu_acir_prover_torch.parallel.mesh import Mesh
     from tpu_acir_prover_torch.parallel.prove import (ShardedProvingKey,
                                                       prove_sharded)
@@ -731,7 +885,8 @@ def phase_mul_chain():
     tag = f"mul_chain 2^{MUL_CHAIN_LOG_N}"
     log = collections.Counter()
     pk = _built(lambda: ProvingKey(cc, STANDARD_CONFIG, device="cuda"),
-                f"{tag} on one device", log)
+                f"{tag} on one device", log,
+                f"{UNBLOCKED_PEAKS_GIB['key']} GiB before column blocks")
     proof, dt, phases, peak, launches = _timed_proof(prove, pk, ext, tag, log)
     paths = [{"path": f"{tag} per-phase on one device",
               "launches": launches, "launches_in": "one proof", "shapes": log,
@@ -739,9 +894,12 @@ def phase_mul_chain():
     verify(pk.vk, proof)
     want = serialize_proof(proof)
     say(f"[sharded] {tag} per-phase on one device: proof {dt:.3f} s "
-        f"({phases}); peak allocated {peak:.3f} GiB; launches {launches}; "
-        "verified")
-    del pk, proof
+        f"({phases}); peak allocated {peak:.3f} GiB "
+        f"({UNBLOCKED_PEAKS_GIB['proof']} GiB before column blocks); "
+        f"launches {launches}; verified")
+    del proof
+    paths.append(_fused_mul_chain(pk, ext, want, tag))
+    del pk
     torch.cuda.empty_cache()
     for shards in (SHARDS, 2):
         stag = f"{tag} over {shards} shards"
@@ -789,6 +947,8 @@ def main():
     torch.cuda.empty_cache()
     paths += phase_mul_chain()
     say(f"[sharded] phase took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    paths.append(phase_scaling())
     t0 = time.perf_counter()
     records = phase_kernels(grind_state, grind_lane, launches, paths)
     say(f"[kernels] phase took {time.perf_counter() - t0:.1f} s")

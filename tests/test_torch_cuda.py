@@ -1,7 +1,8 @@
 """The Poseidon2 CUDA kernels against their plain torch twins, on the card,
 bit for bit; the fused prover's CUDA graph against the per-phase prover on
-the card; the sharded prover and FRI layer with every shard on the card
-against their CPU runs.
+the card, also with commits over several column blocks; the sharded
+prover and FRI layer with every shard on the card against their CPU
+runs.
 
 Skips where torch.cuda.is_available() is false.  Imports no JAX, so it also
 runs on a machine without it:
@@ -27,6 +28,7 @@ from tpu_acir_prover_torch.parallel.fri import (layer_inv2x_padded,
 from tpu_acir_prover_torch.parallel.mesh import Mesh
 from tpu_acir_prover_torch.parallel.prove import (ShardedProvingKey,
                                                   prove_sharded)
+from tpu_acir_prover_torch.prover import prove as prove_mod
 from tpu_acir_prover_torch.prover.config import TEST_CONFIG
 from tpu_acir_prover_torch.prover.fused import prove_fused
 from tpu_acir_prover_torch.prover.merkle import merkle_levels
@@ -213,6 +215,25 @@ def test_fused_graph_bytes_equal_per_phase(cuda, name):
     held = pk._captured.launches
     assert held["permute"] == 0
     assert all(held[k] > 0 for k in kp.launches if k != "permute")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fibonacci", "lookup_bits=8"])
+def test_column_blocked_commits_in_a_graph_equal_cpu(cuda, name,
+                                                     monkeypatch):
+    """Two columns a block: the key's commit, the proof's commits and the
+    FRI combination run over several column blocks, in the fused graph and
+    per-phase on the card; the bytes of the one-block proof on the CPU."""
+    cc, ext = _small(name)
+    want = serialize_proof(prove(ProvingKey(cc, TEST_CONFIG, device="cpu"),
+                                 ext))
+    monkeypatch.setattr(prove_mod, "COMMIT_BLOCK",
+                        2 << (cc.log_n + TEST_CONFIG.rate_bits))
+    pk = ProvingKey(cc, TEST_CONFIG, device=cuda)
+    proof = prove_fused(pk, ext)
+    verify(pk.vk, proof)
+    assert serialize_proof(proof) == want
+    assert serialize_proof(prove(pk, ext)) == want
 
 
 @pytest.mark.cuda

@@ -176,6 +176,16 @@ def test_circuits_match_factories(name):
     assert wm == jwm
 
 
+@pytest.mark.parametrize("name", sorted(factories.ALL_SMALL))
+def test_example_builders_match_factories(name):
+    """Each copied example builder gives its original's program bytes and
+    witness map."""
+    prog, wm = circuits.ALL_SMALL[name]()
+    jprog, jwm = factories.ALL_SMALL[name]()
+    assert codec.serialize_program(prog) == jcodec.serialize_program(jprog)
+    assert wm == jwm
+
+
 def _honest_proof():
     prog, wm = factories.fibonacci()
     tr = jtranslate(prog)
@@ -265,7 +275,9 @@ def _sources():
         for f in sorted(files):
             if f.endswith(".py"):
                 yield os.path.join(d, f)
-    yield os.path.join(ROOT, "chip_smoke.py")
+    for script in ("chip_smoke.py", "bench_torch.py",
+                   "examples/run_examples_torch.py"):
+        yield os.path.join(ROOT, script)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -275,6 +287,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for mod in ("mesh", "pipeline", "fri", "prove"):
         assert f"tpu_acir_prover_torch/parallel/{mod}.py" in checked, mod
     assert "tpu_acir_prover_torch/utils/bench_circuits.py" in checked
+    for path in ("tpu_acir_prover_torch/parallel/scaling.py",
+                 "bench_torch.py", "examples/run_examples_torch.py"):
+        assert path in checked, path
     for path in _sources():
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -47,6 +47,10 @@ from .proof import (FriStep, Openings, OracleOpening, Proof, QueryRound,
 NUM_CHUNKS = 6  # quotient degree < 6n for constraint degree <= 7 at rate 8
 # LDE rows per quotient evaluation step; bounds the step's temporaries
 QUOTIENT_CHUNK = 1 << 18
+# most elements of an (m, C) LDE matrix one pass of a commit's NTTs, or of
+# the FRI combination, works on (a block of columns); bounds their
+# temporaries: 8 columns at 2^23 rows, every column at once up to 2^20
+COMMIT_BLOCK = 1 << 26
 
 
 def resolve_device(device) -> torch.device:
@@ -109,6 +113,13 @@ def _shift_one(x, fill):
     return tuple(torch.cat([torch.full((1,), f, dtype=torch.int64,
                                        device=c.device), c[:-1]])
                  for c, f in zip(x, fill))
+
+
+def column_blocks(rows: int, cols: int):
+    """Slices of the columns of a (rows, cols) matrix, each block of at
+    most COMMIT_BLOCK elements (one column at least)."""
+    step = max(1, COMMIT_BLOCK // rows)
+    return [slice(c, min(c + step, cols)) for c in range(0, cols, step)]
 
 
 def exclusive_scan(op, x, fill):
@@ -246,9 +257,13 @@ def fri_combine_body(pk, lde_list, z_lde, fri_alpha, ys, ys_next, zeta,
     y2 = E.dot(ys_next, (a_re[ncols:], a_im[ncols:]))
 
     def combo(mat, base):
-        sl = slice(base, base + mat.shape[1])
-        return (gl.sum_axis(gl.mul(mat, a_re[sl]), 1),
-                gl.sum_axis(gl.mul(mat, a_im[sl]), 1))
+        acc = None
+        for sl in column_blocks(*mat.shape):
+            blk, a = mat[:, sl], slice(base + sl.start, base + sl.stop)
+            t = (gl.sum_axis(gl.mul(blk, a_re[a]), 1),
+                 gl.sum_axis(gl.mul(blk, a_im[a]), 1))
+            acc = t if acc is None else E.add(acc, t)
+        return acc
 
     x = pk.x_lde
     acc, base = None, 0
@@ -381,9 +396,22 @@ class ProvingKey:
         return w.T.contiguous()
 
     def commit(self, values: torch.Tensor, from_coeffs: bool = False) -> Oracle:
-        """(INTT +) coset LDE + Merkle tree of an (n, C) matrix."""
-        coeffs = values if from_coeffs else intt(values)
-        lde = coset_lde(coeffs, self.config.rate_bits)
+        """(INTT +) coset LDE + Merkle tree of an (n, C) matrix.  The NTTs
+        run over the ``column_blocks`` of the LDE, which are assembled
+        before hashing: the NTT is column-independent, so the values are
+        those of one pass over all columns."""
+        rate_bits = self.config.rate_bits
+        blocks = column_blocks(self.m, values.shape[1])
+        if len(blocks) == 1:
+            coeffs = values if from_coeffs else intt(values)
+            lde = coset_lde(coeffs, rate_bits)
+        else:
+            coeffs = values if from_coeffs else torch.empty_like(values)
+            lde = values.new_empty((self.m, values.shape[1]))
+            for sl in blocks:
+                if not from_coeffs:
+                    coeffs[:, sl] = intt(values[:, sl])
+                lde[:, sl] = coset_lde(coeffs[:, sl], rate_bits)
         return Oracle(coeffs, lde, merkle_tree(lde, self.config.cap_height))
 
     def round2_phase(self, wires, beta, gamma, lam) -> torch.Tensor:

@@ -1,10 +1,13 @@
-"""The two ACIR programs ``chip_smoke.py`` proves: ``fibonacci`` and the
-``ecdsa_secp256k1`` flagship, each with its solved witness map.
+"""The ACIR programs the port proves outside its tests: the fourteen small
+example programs of ``ALL_SMALL`` (``examples/run_examples_torch.py``)
+and the ``ecdsa_secp256k1`` flagship (``chip_smoke.py``,
+``bench_torch.py``), each with its solved witness map.
 
-A copy of ``expr``, ``fi``, ``circuit``, ``program``, ``fibonacci``,
-``_ecdsa_sign`` and ``ecdsa_secp256k1`` from ``tests/factories.py``, built
-on the port's ``acir/ir.py``; ``tests/test_torch_host.py`` holds the
-program bytes equal to the originals'.
+A copy of the builders from ``expr`` to ``array_dynamic``, of
+``_ecdsa_sign``, ``ecdsa_secp256k1`` and ``ALL_SMALL`` in
+``tests/factories.py``, built on the port's ``acir/ir.py``;
+``tests/test_torch_host.py`` holds the program bytes and witness maps
+equal to the originals'.
 """
 
 from ..acir import ir
@@ -30,6 +33,103 @@ def program(c):
 
 # --- reference fixture analogs -------------------------------------------------
 
+def assert_x_equals_5():
+    """fixture assert_x_equals_5: public x; assert(x == 5)."""
+    c = circuit([ir.AssertZero(expr(lin=[(1, 0)], q_c=-5))], 1, public=(0,))
+    return program(c), {0: 5}
+
+
+def one_mul():
+    """fixture 1_mul: z = x*y; assert via return witness."""
+    ops = [ir.AssertZero(expr(mul=[(1, 0, 1)], lin=[(P - 1, 2)]))]
+    c = circuit(ops, 3, private=(0, 1), ret=(2,))
+    return program(c), {0: 3, 1: 5, 2: 15}
+
+
+def three_add():
+    """fixture 3_add: w3 = x + y + z."""
+    ops = [ir.AssertZero(expr(lin=[(1, 0), (1, 1), (1, 2), (P - 1, 3)]))]
+    c = circuit(ops, 4, private=(0, 1, 2), ret=(3,))
+    return program(c), {0: 10, 1: 20, 2: 12, 3: 42}
+
+
+def five_over():
+    """fixture 5_over: x > 5 via range-checked difference (x - 6 in 32 bits)."""
+    ops = [
+        ir.AssertZero(expr(lin=[(1, 0), (P - 1, 1)], q_c=-6)),
+        ir.BlackBoxRange(fi(1, 32)),
+    ]
+    c = circuit(ops, 2, private=(0,))
+    return program(c), {0: 11, 1: 5}
+
+
+def quadratic_mixed():
+    """mixed quadratic+linear expression (test_assert_zero.rs shapes):
+    2xy + 3x + 4y + c - out = 0."""
+    ops = [ir.AssertZero(expr(mul=[(2, 0, 1)], lin=[(3, 0), (4, 1), (P - 1, 2)],
+                              q_c=7))]
+    x, y = 9, 11
+    out = (2 * x * y + 3 * x + 4 * y + 7) % P
+    c = circuit(ops, 3, private=(0, 1), public=(2,))
+    return program(c), {0: x, 1: y, 2: out}
+
+
+def range_check(bits=32, value=None):
+    """RANGE blackbox at various widths (test_blackbox.rs:8-107)."""
+    if value is None:
+        value = (1 << bits) - 1
+    c = circuit([ir.BlackBoxRange(fi(0, bits))], 1, private=(0,))
+    return program(c), {0: value}
+
+
+def bitwise(kind="xor", bits=32, x=0xA5A5_5A5A, y=0x0F0F_F0F0):
+    mask = (1 << bits) - 1
+    x &= mask
+    y &= mask
+    out = (x ^ y) if kind == "xor" else (x & y)
+    cls = ir.BlackBoxXor if kind == "xor" else ir.BlackBoxAnd
+    c = circuit([cls(fi(0, bits), fi(1, bits), 2)], 3, private=(0, 1), ret=(2,))
+    return program(c), {0: x, 1: y, 2: out}
+
+
+def basic_memory_read(values=(7, 11, 13, 17), index=2):
+    """MemoryInit + read at dynamic index (basic_memory_* fixtures)."""
+    n = len(values)
+    ops = [
+        ir.MemoryInit(0, tuple(range(n))),
+        ir.MemoryOp(0, ir.MemOp(expr(q_c=0), expr(lin=[(1, n)]),
+                                expr(lin=[(1, n + 1)]))),
+    ]
+    c = circuit(ops, n + 2, private=tuple(range(n)) + (n,), ret=(n + 1,))
+    wm = {i: v for i, v in enumerate(values)}
+    wm[n] = index
+    wm[n + 1] = values[index]
+    return program(c), wm
+
+
+def memory_write_then_read(values=(1, 2, 3, 4, 5), windex=1, wvalue=42,
+                           rindex=1):
+    """basic_memory_write fixture shape: write then read back."""
+    n = len(values)
+    w_wi, w_wv, w_ri, w_rv = n, n + 1, n + 2, n + 3
+    ops = [
+        ir.MemoryInit(0, tuple(range(n))),
+        ir.MemoryOp(0, ir.MemOp(expr(q_c=1), expr(lin=[(1, w_wi)]),
+                                expr(lin=[(1, w_wv)]))),
+        ir.MemoryOp(0, ir.MemOp(expr(q_c=0), expr(lin=[(1, w_ri)]),
+                                expr(lin=[(1, w_rv)]))),
+    ]
+    c = circuit(ops, n + 4, private=tuple(range(n)) + (w_wi, w_wv, w_ri),
+                ret=(w_rv,))
+    wm = {i: v for i, v in enumerate(values)}
+    wm[w_wi] = windex
+    wm[w_wv] = wvalue
+    wm[w_ri] = rindex
+    final = list(values)
+    final[windex] = wvalue
+    wm[w_rv] = final[rindex]
+    return program(c), wm
+
 
 def fibonacci(n_steps=10, brillig_noise=True):
     """fibonacci example shape: AssertZero chain; optionally a BrilligCall
@@ -49,6 +149,52 @@ def fibonacci(n_steps=10, brillig_noise=True):
     return program(c), wm
 
 
+def seven_function(x=9):
+    """fixture 7_function shape: a Call opcode in the stream (translation
+    no-op, mod.rs:98-104 — callee outputs arrive pre-solved in the witness
+    file) whose output is then constrained by main's own AssertZero."""
+    # w0 = x (private), w1 = x + 1 via AssertZero, Call f(w1) -> w2,
+    # main asserts w2 == w1 (the inlined callee is the identity)
+    ops = [
+        ir.AssertZero(expr(lin=[(1, 0), (P - 1, 1)], q_c=1)),
+        ir.Call(1, (1,), (2,)),
+        ir.AssertZero(expr(lin=[(1, 1), (P - 1, 2)])),
+    ]
+    c = circuit(ops, 3, private=(0,), ret=(2,))
+    return program(c), {0: x, 1: x + 1, 2: x + 1}
+
+
+def array_dynamic(values=(10, 20, 30, 40, 50), windex=3, wvalue=77,
+                  rindex1=1, rindex2=3):
+    """fixture array_dynamic shape: non-power-of-two block (padded to 8,
+    memory_translator.rs:141-151), dynamic read, dynamic write, read-back —
+    exercising the index restriction against the real length."""
+    n = len(values)
+    w_r1i, w_r1v = n, n + 1
+    w_wi, w_wv = n + 2, n + 3
+    w_r2i, w_r2v = n + 4, n + 5
+    ops = [
+        ir.MemoryInit(0, tuple(range(n))),
+        ir.MemoryOp(0, ir.MemOp(expr(q_c=0), expr(lin=[(1, w_r1i)]),
+                                expr(lin=[(1, w_r1v)]))),
+        ir.MemoryOp(0, ir.MemOp(expr(q_c=1), expr(lin=[(1, w_wi)]),
+                                expr(lin=[(1, w_wv)]))),
+        ir.MemoryOp(0, ir.MemOp(expr(q_c=0), expr(lin=[(1, w_r2i)]),
+                                expr(lin=[(1, w_r2v)]))),
+    ]
+    c = circuit(ops, n + 6,
+                private=tuple(range(n)) + (w_r1i, w_wi, w_wv, w_r2i),
+                ret=(w_r1v, w_r2v))
+    wm = {i: v for i, v in enumerate(values)}
+    wm[w_r1i] = rindex1
+    wm[w_r1v] = values[rindex1]
+    wm[w_wi] = windex
+    wm[w_wv] = wvalue
+    final = list(values)
+    final[windex] = wvalue
+    wm[w_r2i] = rindex2
+    wm[w_r2v] = final[rindex2]
+    return program(c), wm
 
 
 def _ecdsa_sign(msg_hash: int, priv: int, k: int):
@@ -114,3 +260,19 @@ def ecdsa_secp256k1(valid=True):
     return program(c), wm
 
 
+ALL_SMALL = {
+    "assert_x_equals_5": assert_x_equals_5,
+    "1_mul": one_mul,
+    "3_add": three_add,
+    "5_over": five_over,
+    "quadratic_mixed": quadratic_mixed,
+    "range_8": lambda: range_check(8),
+    "range_33": lambda: range_check(33),
+    "xor_32": lambda: bitwise("xor", 32),
+    "and_8": lambda: bitwise("and", 8),
+    "memory_read": basic_memory_read,
+    "memory_write": memory_write_then_read,
+    "fibonacci": fibonacci,
+    "7_function": seven_function,
+    "array_dynamic": array_dynamic,
+}
