@@ -27,9 +27,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    time of all kernels and of the Poseidon2 kernels;
 7. sharded: ``prove_sharded`` with every shard on cuda:0.  Parity: over 2
    and 4 shards on the two small circuits, bytes equal to the port's on
-   the CPU.  The ECDSA circuit over 4 shards: key build, two warm proofs
-   with their phases, peak memory and kernel launches (counted from 0 for
-   each proof), bytes equal to the CLI's, beside the per-phase proof of
+   the CPU.  The ECDSA circuit over 4 shards: key build, a warm proof
+   with its phases, peak memory and kernel launches (counted from 0),
+   bytes equal to the CLI's, verified, beside the per-phase proof of
    [fused].  The 2^20-row ``mul_chain`` circuit (standard config, LDE 2^23
    rows): one per-phase proof on a plain key, then ``prove_fused`` on the
    same key (its eager run, the graph's capture and instantiation, then a
@@ -39,27 +39,43 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    peaks beside those before the commit ran its NTTs in column blocks.
    Each of these four paths records the shapes it gives ``leaf_hash`` and
    ``two_to_one_levels``;
-8. scaling: the weak-scaling sweep of ``parallel/scaling.py`` at its
-   defaults (2^10 rows a shard, 1 to 8 shards) on cuda:0, and its line;
+8. sha256: the SHA-256 circuits of ``utils/circuits.py``.  Parity: the
+   2^16-row one-compression circuit (test config) proven per-phase and
+   fused, bytes equal, both verified.  The port's CLI proves, writes the
+   vk of and verifies a saved ``sha256_multiblock(2)`` (2^17 rows,
+   standard config) on the fused path: the key build, the first proof
+   (eager run, capture, instantiate) with its peak, then warm fused and
+   per-phase proofs in turns, two each, with their phases, upper medians,
+   peaks and launches, and the graph's pool; the port's verifier accepts
+   the proof and rejects it with a byte flipped.  The longest chained
+   message that compiles to 2^20 rows (``SHA_LONG_BLOCKS`` blocks):
+   ``api.prove_file`` translates, compiles, builds the key and proves it
+   per-phase, then ``prove_fused`` proves it on the same key (first proof,
+   capture, instantiate, a warm proof, pool, peak); bytes equal, both
+   verified.  Each path records its shapes as the paths of [sharded] do;
+9. scaling: the weak-scaling sweep of ``parallel/scaling.py`` at its
+   default size (2^10 rows a shard, 1 to 8 shards) with one timed proof
+   a point, on cuda:0, and its line;
    each point's last proof verified, the one over 8 shards equal to the
    port's on the CPU; the sweep records its shapes as the paths of
    [sharded] do;
-9. kernels: each kernel against its plain torch twin on the card, bit for
-   bit, with both times and the card's bound for the same work: at the
-   main path's shapes (the grind from the ECDSA proof's own state; the
-   duplex on k = 8 inputs that are views into two tensors, and a replayed
-   CUDA graph of a chain of 223 duplexes, timed and held against the twin's
-   chain, with a latency bound from the measured latency of one dependent
-   Goldilocks product), then at every Merkle-commit shape the paths of
-   [sharded] and [scaling] recorded: each oracle's LDE block and its
-   subtree (the kernel hashes a 2^23-row block whole; its twin, row-local
-   like it, the first and last 2^18 rows, which it is held to).  One
-   record per kernel and shape, with the first path that gives it that
-   shape and the kernel's launches in that path's run (the main path's:
-   the CLI's eager proof and the graph's capture; the fused 2^20 proof's:
-   one replay, as its capture counted them; the sweep's: all of it; the
-   others': one proof), and in ``also_in`` each later path that gives it
-   the same shape, with that path's launches.
+10. kernels: each kernel against its plain torch twin on the card, bit
+    for bit, with both times and the card's bound for the same work: at
+    the main path's shapes (the grind from the ECDSA proof's own state;
+    the duplex on k = 8 inputs that are views into two tensors, and a
+    replayed CUDA graph of a chain of 223 duplexes, timed and held against
+    the twin's chain, with a latency bound from the measured latency of
+    one dependent Goldilocks product), then at every Merkle-commit shape
+    the paths of [sharded], [sha256] and [scaling] recorded: each oracle's
+    LDE block and its subtree (the kernel hashes a 2^23-row block whole;
+    its twin, row-local like it, the first and last 2^18 rows, which it is
+    held to).  One record per kernel and shape, with the first path that
+    gives it that shape and the kernel's launches in that path's run (the
+    main path's: the CLI's eager proof and the graph's capture; the fused
+    2^20 proofs': one replay, as the capture counted them; the sweep's:
+    all of it; the others': as each record's ``launches_in`` says), and in
+    ``also_in`` each later path that gives it the same shape, with that
+    path's launches.
 
 The last three lines are a JSON object with a record per kernel and
 shape, the card's name and power limit, and ``{"ok": true, "device":
@@ -75,6 +91,7 @@ sys.modules["tpu_acir_prover"] = None
 
 import collections  # noqa: E402
 import contextlib  # noqa: E402
+import gc  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
@@ -106,6 +123,7 @@ POSEIDON_KERNELS = ("leaf_hash_kernel", "merkle_levels_kernel",
 SHARDED_PATH = ("leaf_hash", "two_to_one_level", "grind")
 SHARDS = 4                          # shards of the full-width proofs
 SHARDS_SMALL = (2, 4)               # shards of the parity proofs
+SCALING_REPS = 1                    # timed proofs a point of the sweep
 MUL_CHAIN_LOG_N = 20                # bench.py's headline circuit
 # leaf_hash's twin hashes blocks of up to TWIN_WHOLE_ROWS rows whole; of a
 # larger block (2^23 rows at 2^20) only the first and last TWIN_END_ROWS,
@@ -117,6 +135,10 @@ FUSED_PATH = ("leaf_hash", "two_to_one_level", "duplex", "grind")
 # the 2^20 mul_chain key build's and per-phase proof's peaks (GiB) before
 # the commit ran its NTTs in column blocks (NVIDIA H100 80GB HBM3, 700 W)
 UNBLOCKED_PEAKS_GIB = {"key": 31.462, "proof": 37.408}
+SHA_CLI_BLOCKS = 2                  # the JAX package's slow test: 2^17 rows
+# api's steps that the [sha256] phase times, each with its peak
+API_CALLS = ("translate_program", "compile_circuit", "ProvingKey", "prove",
+             "prove_fused")
 
 # The card's bound for a batch of Poseidon2 permutations: the larger of its
 # bytes over the memory rate and its 32-bit multiply-adds over their peak
@@ -198,6 +220,34 @@ def shapes_seen(log):
         kp.leaf_hash, kp.two_to_one_levels = leaf, levels
 
 
+@contextlib.contextmanager
+def timed_calls(module, names, out):
+    """While open, each call of ``module``'s functions ``names`` is timed
+    (the card synchronised before and after) and its peak allocated memory
+    taken from a reset: ``out[name]`` = (seconds, peak GiB)."""
+    real = {name: getattr(module, name) for name in names}
+
+    def timed(name, fn):
+        def spy(*args, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            out[name] = (time.perf_counter() - t0,
+                         torch.cuda.max_memory_allocated() / 2**30)
+            return result
+        return spy
+
+    for name, fn in real.items():
+        setattr(module, name, timed(name, fn))
+    try:
+        yield out
+    finally:
+        for name, fn in real.items():
+            setattr(module, name, fn)
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -231,16 +281,17 @@ def _twin_rows(t):
     return [t[:TWIN_END_ROWS], t[-TWIN_END_ROWS:]]
 
 
-def _path_cases(rng, dev, paths):
+def _path_cases(rng, dev, paths, done):
     """Kernel-vs-twin cases at the Merkle-commit shapes each path recorded:
     leaf_hash on every oracle's (rows, C) LDE block and two_to_one_levels
     on its digests, rows being the path's LDE rows per shard.  A shape
-    that an earlier path gave already is one case; the later paths, their
-    launches and calls go to its list ``also``."""
+    that the main path or an earlier path gave already (a key of ``done``)
+    is one case; the later paths, their launches and calls go to its list
+    ``also``."""
     from tpu_acir_prover_torch.field import poseidon as plain
     from tpu_acir_prover_torch.kernels import poseidon as kp
     from tpu_acir_prover_torch.kernels.bench import field_input
-    cases, done = [], {}
+    cases = []
     for path in paths:
         rows = path["rows"]
         log2 = f"2^{rows.bit_length() - 1}"
@@ -299,13 +350,17 @@ def phase_kernels(grind_state, grind_lane, main_launches, paths):
             "launches_in": "the CLI's run (one eager proof, then the "
             "graph's capture)", "shapes": None}
     n_levels = (LEAF_ROWS // TREE_CAP).bit_length() - 1
+    # the later paths that give the main path's Merkle shapes
+    done = {("leaf_hash", (LEAF_ROWS, c)): [] for c in LEAF_WIDTHS}
+    done[("two_to_one_level", (LEAF_ROWS, n_levels))] = []
     cases = []
     for c in LEAF_WIDTHS:
         cases.append(("leaf_hash", f"(2^20, {c})", main, None,
                       lambda c=c: field_input(rng, (LEAF_ROWS, c), dev),
                       lambda x: [kp.leaf_hash(x)],
                       lambda x: [plain.hash_no_pad(x)],
-                      bound(LEAF_ROWS * -(-c // 8), LEAF_ROWS * (c + 4) * 8)))
+                      bound(LEAF_ROWS * -(-c // 8), LEAF_ROWS * (c + 4) * 8),
+                      done[("leaf_hash", (LEAF_ROWS, c))]))
     cases.append(("two_to_one_level",
                   f"(2^20, 4) leaves -> {n_levels} levels to a {TREE_CAP}-"
                   f"digest cap ({kp.LEVELS_PER_LAUNCH} levels per launch; "
@@ -315,16 +370,17 @@ def phase_kernels(grind_state, grind_lane, main_launches, paths):
                   lambda x: kp.two_to_one_levels(x, n_levels),
                   lambda x: plain.two_to_one_levels(x, n_levels),
                   bound(LEAF_ROWS - TREE_CAP,
-                        (2 * LEAF_ROWS - TREE_CAP) * 32)))
+                        (2 * LEAF_ROWS - TREE_CAP) * 32),
+                  done[("two_to_one_level", (LEAF_ROWS, n_levels))]))
     cases.append(("permute", "(2^17, 12)", main, None,
                   lambda: field_input(rng, (PERMUTE_STATES, 12), dev),
                   lambda x: [kp.permute(x)], lambda x: [plain.permute(x)],
-                  bound(PERMUTE_STATES, PERMUTE_STATES * 12 * 8 * 2)))
+                  bound(PERMUTE_STATES, PERMUTE_STATES * 12 * 8 * 2), []))
     cases.append(("permute", "(1, 12): one state, beside the duplex (the "
                   "main path no longer launches permute)", main, None,
                   lambda: field_input(rng, (1, 12), dev),
                   lambda x: [kp.permute(x)], lambda x: [plain.permute(x)],
-                  bound(1, 12 * 8 * 2)))
+                  bound(1, 12 * 8 * 2), []))
     # k = 8 inputs: views at nonzero offsets into two tensors
     a, b = field_input(rng, (9,), dev), field_input(rng, (6,), dev)
     inputs = [a[1 + i // 2] if i % 2 == 0 else b[5 - i // 2]
@@ -335,7 +391,7 @@ def phase_kernels(grind_state, grind_lane, main_launches, paths):
                   lambda: field_input(rng, (12,), dev),
                   lambda x: [kp.duplex(x, inputs)],
                   lambda x: [plain.duplex(x, inputs)],
-                  (DUPLEX_CHAIN_PRODUCTS * mul_ms, "operations")))
+                  (DUPLEX_CHAIN_PRODUCTS * mul_ms, "operations"), []))
     nonce = int(kp.grind(grind_state, grind_lane, POW_BITS))
     # the least work: every nonce up to the smallest hit is tried
     cases.append(("grind", f"ECDSA proof's state, nonce lane {grind_lane}, "
@@ -343,8 +399,8 @@ def phase_kernels(grind_state, grind_lane, main_launches, paths):
                   lambda: grind_state,
                   lambda x: [kp.grind(x, grind_lane, POW_BITS)],
                   lambda x: [plain.grind(x, grind_lane, POW_BITS)],
-                  bound(nonce + 1, 12 * 8 + 8)))
-    cases = [c + ([],) for c in cases] + _path_cases(rng, dev, paths)
+                  bound(nonce + 1, 12 * 8 + 8), []))
+    cases += _path_cases(rng, dev, paths, done)
     records = []
     for name, shape, path, calls, make, kern, twin, (bound_ms, bound_by), \
             also in cases:
@@ -435,23 +491,15 @@ def phase_main_path(work):
     counts over that run (the eager warm-up run and the capture of the
     fused path), the proving key, the external values and the proof."""
     from tpu_acir_prover_torch import api, cli
-    from tpu_acir_prover_torch.acir import codec, ir
+    from tpu_acir_prover_torch.acir import codec
     from tpu_acir_prover_torch.kernels import poseidon as kp
-    from tpu_acir_prover_torch.prover.compress import (compress_proof,
-                                                       decompress_proof)
     from tpu_acir_prover_torch.prover.config import STANDARD_CONFIG
-    from tpu_acir_prover_torch.prover.serialization import (
-        deserialize_compressed_proof, deserialize_vk)
-    from tpu_acir_prover_torch.prover.verify import verify
     from tpu_acir_prover_torch.utils import circuits
 
-    prog_path = os.path.join(work, "ecdsa.json")
-    wit_path = os.path.join(work, "ecdsa.gz")
+    prog_path, wit_path = _save_program(work, "ecdsa",
+                                        *circuits.ecdsa_secp256k1())
     proof_path = os.path.join(work, "proof")
     vk_path = os.path.join(work, "vk")
-    prog, wm = circuits.ecdsa_secp256k1()
-    codec.save_program_artifact(prog_path, prog)
-    codec.save_witness_stack(wit_path, ir.WitnessStack([ir.StackItem(0, wm)]))
 
     kp.reset_launches()
     t0 = time.perf_counter()
@@ -479,7 +527,18 @@ def phase_main_path(work):
         raise AssertionError("the CLI did not prove through a CUDA graph")
     say("[main] the CLI took the fused path: one CUDA graph captured for "
         "the key and replayed")
+    data = _verify_flipped(vk_path, proof_path, "[main]")
+    ws = codec.load_witness_stack(wit_path)
+    return launches, pk, tr.external_values(ws.peek().witness), data
 
+
+def _verify_flipped(vk_path, proof_path, phase):
+    """The port's verifier on the CLI's files: it accepts the proof and
+    rejects it with a byte flipped.  Returns the proof's bytes."""
+    from tpu_acir_prover_torch.prover.compress import decompress_proof
+    from tpu_acir_prover_torch.prover.serialization import (
+        deserialize_compressed_proof, deserialize_vk)
+    from tpu_acir_prover_torch.prover.verify import verify
     with open(vk_path, "rb") as f:
         vk = deserialize_vk(f.read())
     with open(proof_path, "rb") as f:
@@ -491,13 +550,11 @@ def phase_main_path(work):
         verify(vk, decompress_proof(vk, deserialize_compressed_proof(
             bytes(bad))))
     except Exception as e:  # any failure is a rejection
-        say(f"[main] port's verifier: accepts the proof, rejects it with "
+        say(f"{phase} port's verifier: accepts the proof, rejects it with "
             f"byte {len(bad) // 2} flipped ({type(e).__name__})")
     else:
         raise AssertionError("tampered proof was accepted")
-
-    ws = codec.load_witness_stack(wit_path)
-    return launches, pk, tr.external_values(ws.peek().witness), data
+    return data
 
 
 def _median(xs):
@@ -509,14 +566,9 @@ def phase_fused(pk, ext, data):
     """The captured graph of the CLI's proof, then warm fused and per-phase
     proofs in turns, their synchronising calls, and one profiled replay.
     Returns the (state, lane) the per-phase proof's grind searched from."""
-    from tpu_acir_prover_torch.kernels import poseidon as kp
-    from tpu_acir_prover_torch.prover.compress import compress_proof
     from tpu_acir_prover_torch.prover.fused import prove_fused
     from tpu_acir_prover_torch.prover.prove import prove
-    from tpu_acir_prover_torch.prover.serialization import (
-        serialize_compressed_proof)
     from tpu_acir_prover_torch.utils.syncs import count_syncs
-    from tpu_acir_prover_torch.utils.timing import PhaseTimer
 
     cap = pk._captured
     say(f"[fused] one CUDA graph for the proof after witness_fill: capture "
@@ -527,6 +579,29 @@ def phase_fused(pk, ext, data):
                if v == 0 and k not in OFF_PATH]
     if missing:
         raise AssertionError(f"the captured graph holds no {missing}")
+    per_phase, seen = _in_turns(pk, ext, data, "[fused]")
+    _, n_fused = count_syncs(lambda: prove_fused(pk, ext))
+    _, n_phase = count_syncs(lambda: prove(pk, ext))
+    say(f"[fused] synchronising calls per proof (sync debug mode): fused "
+        f"{n_fused}, per-phase {n_phase}")
+    profile_replay(pk, ext)
+    return seen[0], per_phase
+
+
+def _in_turns(pk, ext, data, phase):
+    """Warm fused and per-phase proofs on the CLI's key in turns,
+    ALTERNATIONS of each, each one's bytes equal to the CLI's ``data``;
+    prints each with its phases, peak and (per-phase: the fused proof's are
+    the capture's) kernel launches counted from 0, then the upper medians.
+    Returns the per-phase proofs' median, peak and last phases, and the
+    (state, lane) each per-phase proof's grind searched from."""
+    from tpu_acir_prover_torch.kernels import poseidon as kp
+    from tpu_acir_prover_torch.prover.compress import compress_proof
+    from tpu_acir_prover_torch.prover.fused import prove_fused
+    from tpu_acir_prover_torch.prover.prove import prove
+    from tpu_acir_prover_torch.prover.serialization import (
+        serialize_compressed_proof)
+    from tpu_acir_prover_torch.utils.timing import PhaseTimer
 
     seen = []
     real_grind = kp.grind
@@ -545,6 +620,7 @@ def phase_fused(pk, ext, data):
         timer = PhaseTimer()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        kp.reset_launches()
         kp.grind = spy   # the per-phase proof calls it; a replay does not
         try:
             t0 = time.perf_counter()
@@ -553,30 +629,27 @@ def phase_fused(pk, ext, data):
             dt = time.perf_counter() - t0
         finally:
             kp.grind = real_grind
+        launches = f"; launches {dict(kp.launches)}" \
+            if name == "per-phase" else ""
         times[name].append(dt)
         peaks[name].append(torch.cuda.max_memory_allocated())
         if serialize_compressed_proof(compress_proof(pk.vk, proof)) != data:
             raise AssertionError(f"{name} proof differs from the CLI's")
         phases = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timer.phases)
         phase_ms[name].append(phases)
-        say(f"[fused] warm {name} proof {dt:.3f} s ({phases}); peak "
+        say(f"{phase} warm {name} proof {dt:.3f} s ({phases}); peak "
             f"allocated {peaks[name][-1] / 2**30:.3f} GiB; bytes equal to "
-            "the CLI's")
-    say(f"[fused] medians of {ALTERNATIONS}: fused "
+            f"the CLI's{launches}")
+    say(f"{phase} medians of {ALTERNATIONS}: fused "
         f"{_median(times['fused']):.3f} s, per-phase "
         f"{_median(times['per-phase']):.3f} s; peak allocated fused "
         f"{max(peaks['fused']) / 2**30:.3f} GiB (the graph's pool is "
-        f"reserved apart: {cap.pool_bytes / 2**30:.3f} GiB), per-phase "
-        f"{max(peaks['per-phase']) / 2**30:.3f} GiB")
-    _, n_fused = count_syncs(lambda: prove_fused(pk, ext))
-    _, n_phase = count_syncs(lambda: prove(pk, ext))
-    say(f"[fused] synchronising calls per proof (sync debug mode): fused "
-        f"{n_fused}, per-phase {n_phase}")
-    profile_replay(pk, ext)
+        f"reserved apart: {pk._captured.pool_bytes / 2**30:.3f} GiB), "
+        f"per-phase {max(peaks['per-phase']) / 2**30:.3f} GiB")
     per_phase = {"median_s": _median(times["per-phase"]),
                  "peak_gib": max(peaks["per-phase"]) / 2**30,
                  "phases": phase_ms["per-phase"][-1]}
-    return seen[0], per_phase
+    return per_phase, seen
 
 
 def profile_replay(pk, ext):
@@ -739,30 +812,28 @@ def phase_sharded(pk, ext, data, per_phase):
                  tag, log)
     if spk.vk.constants_cap != pk.vk.constants_cap:
         raise AssertionError("sharded constants cap differs")
-    runs = []
-    for _ in range(2):
-        proof, dt, phases, peak, launches = _timed_proof(prove_sharded, spk,
-                                                         ext, tag, log)
-        if serialize_compressed_proof(compress_proof(spk.vk, proof)) != data:
-            raise AssertionError(f"{tag}: proof differs from the CLI's")
-        runs.append(dt)
-        say(f"[sharded] {tag}: warm proof {dt:.3f} s ({phases}); peak "
-            f"allocated {peak:.3f} GiB; Poseidon2 launches {launches}; "
-            "bytes equal to the CLI's")
+    proof, dt, phases, peak, launches = _timed_proof(prove_sharded, spk, ext,
+                                                     tag, log)
+    if serialize_compressed_proof(compress_proof(spk.vk, proof)) != data:
+        raise AssertionError(f"{tag}: proof differs from the CLI's")
     verify(spk.vk, proof)
-    say(f"[sharded] {tag}: proofs {runs[0]:.3f} s and {runs[1]:.3f} s; "
-        f"beside it the single-device per-phase proof (median of "
+    say(f"[sharded] {tag}: warm proof {dt:.3f} s ({phases}); peak "
+        f"allocated {peak:.3f} GiB; Poseidon2 launches {launches}; bytes "
+        "equal to the CLI's; verified")
+    say(f"[sharded] {tag}: beside it the single-device per-phase proof "
+        f"(median of "
         f"{ALTERNATIONS} in [fused]) {per_phase['median_s']:.3f} s, "
         f"peak {per_phase['peak_gib']:.3f} GiB ({per_phase['phases']})")
     return {"path": tag, "launches": launches, "launches_in": "one proof",
             "shapes": log, "rows": spk.m // SHARDS}
 
 
-def _fused_mul_chain(pk, ext, want, tag):
-    """``prove_fused`` on the 2^20 mul_chain key: the first proof (an eager
-    run, the graph's capture and instantiation, a replay), then a warm
-    one; bytes equal to the per-phase proof's ``want``, verified.  Returns
-    the path, with one replay's kernel launches (the capture's count)."""
+def _fused_on_key(pk, ext, want, tag, phase):
+    """``prove_fused`` on a 2^20-row key that proved per-phase: the first
+    proof (an eager run, the graph's capture and instantiation, a replay),
+    then a warm one; bytes equal to the per-phase proof's ``want``,
+    verified.  Returns the path, with one replay's kernel launches (the
+    capture's count)."""
     from tpu_acir_prover_torch.kernels import poseidon as kp
     from tpu_acir_prover_torch.prover.fused import prove_fused
     from tpu_acir_prover_torch.prover.serialization import serialize_proof
@@ -786,7 +857,7 @@ def _fused_mul_chain(pk, ext, want, tag):
     missing = [k for k in FUSED_PATH if cap.launches[k] == 0]
     if missing:
         raise AssertionError(f"{ftag}: the graph holds no {missing}")
-    say(f"[sharded] {ftag}: first proof {cold_s:.3f} s (eager run, capture "
+    say(f"{phase} {ftag}: first proof {cold_s:.3f} s (eager run, capture "
         f"{cap.capture_s:.3f} s, instantiate {cap.instantiate_s:.3f} s, one "
         f"replay), peak allocated {cold_peak:.3f} GiB; graph pool "
         f"{cap.pool_bytes / 2**30:.3f} GiB kept between replays; kernel "
@@ -804,7 +875,7 @@ def _fused_mul_chain(pk, ext, want, tag):
             raise AssertionError(f"{ftag}: bytes differ from the per-phase "
                                  "proof's")
     phases = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timer.phases)
-    say(f"[sharded] {ftag}: warm proof {dt:.3f} s ({phases}); peak "
+    say(f"{phase} {ftag}: warm proof {dt:.3f} s ({phases}); peak "
         f"allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
         f"besides the pool; both proofs' bytes equal to the per-phase "
         f"proof's; verified")
@@ -814,8 +885,225 @@ def _fused_mul_chain(pk, ext, want, tag):
             "rows": pk.m}
 
 
+def phase_sha256():
+    """The SHA-256 circuits on the card: the parity circuit, the 2^17-row
+    two-block message through the CLI, the 2^20-row chained message through
+    ``api`` and the fused prover.  Returns their paths, as
+    ``phase_sharded`` does."""
+    t0 = time.perf_counter()
+    _release("[sha256] at the start")
+    paths = [_sha256_parity()]
+    with tempfile.TemporaryDirectory() as work:
+        _release("[sha256] after the parity proofs")
+        cli_path, cli_rows = _sha256_cli(work)
+        paths.append(cli_path)
+        _release("[sha256] after the 2^17 proofs")
+        paths += _sha256_long(work, cli_rows)
+    _release("[sha256] at the end")
+    say(f"[sha256] phase took {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def _release(tag):
+    """Drops api's cached keys with their graphs, then the cyclic garbage;
+    prints what stays allocated on the card before and after, which every
+    peak measured next includes."""
+    from tpu_acir_prover_torch import api
+    api._CACHE.clear()
+    before = torch.cuda.memory_allocated() / 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"{tag}: {before:.3f} GiB allocated on the card, "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB once the cyclic "
+        "garbage is collected")
+
+
+def _sha256_parity():
+    """The one-compression circuit (2^16 rows, test config) proven
+    per-phase and fused on the card: bytes equal, both verified.  Returns
+    the path of the key build and the per-phase proof."""
+    from tpu_acir_prover_torch.acir.translator import translate_program
+    from tpu_acir_prover_torch.circuit.compile import compile_circuit
+    from tpu_acir_prover_torch.kernels import poseidon as kp
+    from tpu_acir_prover_torch.prover.config import TEST_CONFIG
+    from tpu_acir_prover_torch.prover.fused import prove_fused
+    from tpu_acir_prover_torch.prover.prove import ProvingKey, prove
+    from tpu_acir_prover_torch.prover.serialization import serialize_proof
+    from tpu_acir_prover_torch.prover.verify import verify
+    from tpu_acir_prover_torch.utils import circuits
+
+    prog, wm = circuits.sha256_compression()
+    tr = translate_program(prog)
+    cc = compile_circuit(tr.builder)
+    ext = tr.external_values(wm)
+    log = collections.Counter()
+    kp.reset_launches()
+    t0 = time.perf_counter()
+    with shapes_seen(log):
+        pk = ProvingKey(cc, TEST_CONFIG, device="cuda")
+        proof = prove(pk, ext)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = dict(kp.launches)
+    fused = prove_fused(pk, ext)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    missing = [k for k in SHARDED_PATH if launches[k] == 0] + \
+        [k for k in FUSED_PATH if pk._captured.launches[k] == 0]
+    if missing:
+        raise AssertionError(f"sha256_compression launched no {missing}")
+    data = serialize_proof(proof)
+    verify(pk.vk, proof)
+    verify(pk.vk, fused)
+    if serialize_proof(fused) != data:
+        raise AssertionError("sha256_compression: the fused proof's bytes "
+                             "differ from the per-phase proof's")
+    say(f"[sha256] sha256_compression n=2^{cc.log_n} (test config): "
+        f"{len(data)} proof bytes per-phase and fused (a CUDA graph "
+        f"replay), equal; both verified; key build and per-phase proof "
+        f"{t1 - t0:.3f} s, first fused proof {t2 - t1:.3f} s; the CPU's "
+        "bytes are held in tests/test_torch_sha256.py (RUN_SLOW=1): a CPU "
+        "proof takes minutes")
+    pk._captured = None
+    return {"path": "sha256_compression 2^16 (test config)",
+            "launches": launches,
+            "launches_in": "the key build and one per-phase proof",
+            "shapes": log, "rows": pk.m}
+
+
+def _save_program(work, name, prog, wm):
+    """The program's artifact and witness files: their paths."""
+    from tpu_acir_prover_torch.acir import codec, ir
+    prog_path = os.path.join(work, f"{name}.json")
+    wit_path = os.path.join(work, f"{name}.gz")
+    codec.save_program_artifact(prog_path, prog)
+    codec.save_witness_stack(wit_path, ir.WitnessStack([ir.StackItem(0, wm)]))
+    return prog_path, wit_path
+
+
+def _sha256_cli(work):
+    """The CLI's prove, write_vk and verify of sha256_multiblock(2), 2^17
+    rows, on the fused path; warm proofs in turns on its key.  Returns the
+    path of the CLI's prove and the circuit's builder rows."""
+    from tpu_acir_prover_torch import api, cli
+    from tpu_acir_prover_torch.kernels import poseidon as kp
+    from tpu_acir_prover_torch.prover.config import STANDARD_CONFIG
+    from tpu_acir_prover_torch.utils import circuits
+
+    tag = f"sha256_multiblock({SHA_CLI_BLOCKS})"
+    prog, wm = circuits.sha256_multiblock(SHA_CLI_BLOCKS)
+    prog_path, wit_path = _save_program(work, "sha2", prog, wm)
+    proof_path = os.path.join(work, "sha2.proof")
+    vk_path = os.path.join(work, "sha2.vk")
+    calls, log = {}, collections.Counter()
+    kp.reset_launches()
+    t0 = time.perf_counter()
+    with shapes_seen(log), timed_calls(api, API_CALLS, calls):
+        if cli.main(["prove", "-b", prog_path, "-w", wit_path, "-o",
+                     proof_path, "--device", "cuda"]) != 0:
+            raise AssertionError(f"{tag}: cli prove failed")
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = dict(kp.launches)
+    if cli.main(["write_vk", "-b", prog_path, "-o", vk_path,
+                 "--device", "cuda"]) != 0:
+        raise AssertionError(f"{tag}: cli write_vk failed")
+    if cli.main(["verify", "-k", vk_path, "-p", proof_path]) != 0:
+        raise AssertionError(f"{tag}: cli verify rejected the proof")
+    tr, pk = api.load_and_compile(prog_path, STANDARD_CONFIG, "cuda")
+    cap = pk._captured
+    if cap is None or "prove" in calls:
+        raise AssertionError(f"{tag}: the CLI did not prove through a CUDA "
+                             "graph")
+    missing = [k for k in FUSED_PATH if cap.launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{tag}: the graph holds no {missing}")
+    tag = f"{tag} 2^{pk.compiled.log_n}"
+    say(f"[sha256] {tag} LDE=2^{pk.m.bit_length() - 1}: cli prove "
+        f"{cold_s:.3f} s: translate {calls['translate_program'][0]:.3f} s, "
+        f"compile {calls['compile_circuit'][0]:.3f} s, key build "
+        f"{calls['ProvingKey'][0]:.3f} s (peak allocated "
+        f"{calls['ProvingKey'][1]:.3f} GiB), first proof "
+        f"{calls['prove_fused'][0]:.3f} s (eager run, capture "
+        f"{cap.capture_s:.3f} s, instantiate {cap.instantiate_s:.3f} s, one "
+        f"replay; peak allocated {calls['prove_fused'][1]:.3f} GiB); "
+        f"write_vk and verify ok; graph pool {cap.pool_bytes / 2**30:.3f} "
+        f"GiB; launches a replay (the capture's count) {cap.launches}; "
+        f"launches in the CLI's run {launches}")
+    data = _verify_flipped(vk_path, proof_path, f"[sha256] {tag}:")
+    _in_turns(pk, tr.external_values(wm), data, f"[sha256] {tag}:")
+    return {"path": f"{tag}: the CLI's prove", "launches": launches,
+            "launches_in": "the CLI's run (the key build, one eager proof, "
+                           "the graph's capture)",
+            "shapes": log, "rows": pk.m}, len(tr.builder.rows)
+
+
+def _sha256_long(work, cli_rows):
+    """The longest chained message that compiles to 2^20 rows: per-phase
+    through ``api.prove_file``, then fused on the same key; bytes equal,
+    both verified.  Returns the two paths."""
+    from tpu_acir_prover_torch import api
+    from tpu_acir_prover_torch.kernels import poseidon as kp
+    from tpu_acir_prover_torch.prover.compress import decompress_proof
+    from tpu_acir_prover_torch.prover.config import STANDARD_CONFIG
+    from tpu_acir_prover_torch.prover.serialization import (
+        deserialize_compressed_proof, serialize_proof)
+    from tpu_acir_prover_torch.prover.verify import verify
+    from tpu_acir_prover_torch.utils import circuits
+    from tpu_acir_prover_torch.utils.timing import PhaseTimer
+
+    blocks = circuits.SHA_LONG_BLOCKS
+    prog, wm = circuits.sha256_multiblock(blocks)
+    prog_path, wit_path = _save_program(work, "sha_long", prog, wm)
+    calls, log = {}, collections.Counter()
+    timer = PhaseTimer()
+    kp.reset_launches()
+    with shapes_seen(log), timed_calls(api, API_CALLS, calls):
+        data = api.prove_file(prog_path, wit_path,
+                              os.path.join(work, "sha_long.proof"),
+                              STANDARD_CONFIG, "cuda", timer=timer)
+    launches = dict(kp.launches)
+    tr, pk = api.load_and_compile(prog_path, STANDARD_CONFIG, "cuda")
+    tag = f"sha256_multiblock({blocks}) 2^{pk.compiled.log_n}"
+    if "prove" not in calls:
+        raise AssertionError(f"{tag}: api did not prove per-phase")
+    missing = [k for k in SHARDED_PATH if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{tag}: api's proof launched no {missing}")
+    rows = len(tr.builder.rows)
+    per_block = (rows - cli_rows) // (blocks - SHA_CLI_BLOCKS)
+    if pk.n != 1 << 20 or rows + per_block <= pk.n:
+        raise AssertionError(f"{blocks} blocks are not the most that "
+                             "compile to 2^20 rows")
+    proof = decompress_proof(pk.vk, deserialize_compressed_proof(data))
+    verify(pk.vk, proof)
+    want = serialize_proof(proof)
+    del proof
+    phases = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timer.phases)
+    say(f"[sha256] {tag} LDE=2^{pk.m.bit_length() - 1}: {rows} builder "
+        f"rows ({rows / pk.n:.1%} of the trace; {blocks + 1} blocks would "
+        f"take {rows + per_block}); translate "
+        f"{calls['translate_program'][0]:.3f} s, compile "
+        f"{calls['compile_circuit'][0]:.3f} s, key built in "
+        f"{calls['ProvingKey'][0]:.3f} s, peak allocated "
+        f"{calls['ProvingKey'][1]:.3f} GiB")
+    say(f"[sha256] {tag} per-phase through api.prove_file: proof "
+        f"{calls['prove'][0]:.3f} s ({phases}); peak allocated "
+        f"{calls['prove'][1]:.3f} GiB; launches (the key build and the "
+        f"proof) {launches}; verified")
+    paths = [{"path": f"{tag} per-phase through api.prove_file",
+              "launches": launches,
+              "launches_in": "api.prove_file (the key build and one "
+                             "per-phase proof)",
+              "shapes": log, "rows": pk.m}]
+    paths.append(_fused_on_key(pk, tr.external_values(wm), want, tag,
+                               "[sha256]"))
+    return paths
+
+
 def phase_scaling():
-    """The weak-scaling sweep of parallel/scaling.py at its defaults, all
+    """The weak-scaling sweep of parallel/scaling.py at its default size
+    with one timed proof a point (``SCALING_REPS``), all
     shards on cuda:0, its kernels' launches counted from 0; each point's
     last proof verified, the largest point's bytes equal to the port's on
     the CPU.
@@ -833,7 +1121,7 @@ def phase_scaling():
     t0 = time.perf_counter()
     with shapes_seen(log):
         line = scaling.sweep(
-            "cuda:0", scaling.LOG_PER_SHARD, scaling.REPS,
+            "cuda:0", scaling.LOG_PER_SHARD, SCALING_REPS,
             check=lambda spk, proof: points.append(
                 (len(spk.mesh.devices), spk.compiled, spk.vk, proof)))
     launches = dict(kp.launches)
@@ -860,7 +1148,7 @@ def phase_scaling():
                     f"S = {counts} on cuda:0)",
             "launches": launches,
             "launches_in": "the sweep (each point's key build, warm-up and "
-                           f"{scaling.REPS} timed proofs)",
+                           f"{SCALING_REPS} timed proof)",
             "shapes": log,
             "rows": 1 << (scaling.LOG_PER_SHARD + TEST_CONFIG.rate_bits)}
 
@@ -898,7 +1186,7 @@ def phase_mul_chain():
         f"({UNBLOCKED_PEAKS_GIB['proof']} GiB before column blocks); "
         f"launches {launches}; verified")
     del proof
-    paths.append(_fused_mul_chain(pk, ext, want, tag))
+    paths.append(_fused_on_key(pk, ext, want, tag, "[sharded]"))
     del pk
     torch.cuda.empty_cache()
     for shards in (SHARDS, 2):
@@ -948,6 +1236,7 @@ def main():
     paths += phase_mul_chain()
     say(f"[sharded] phase took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
+    paths += phase_sha256()
     paths.append(phase_scaling())
     t0 = time.perf_counter()
     records = phase_kernels(grind_state, grind_lane, launches, paths)

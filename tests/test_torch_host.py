@@ -165,12 +165,15 @@ def test_bench_circuits_match(log_n):
                           want.generate_witness(np.array([], np.uint64)))
 
 
-@pytest.mark.parametrize("name", ["fibonacci", "ecdsa_secp256k1"])
+@pytest.mark.parametrize("name", ["fibonacci", "ecdsa_secp256k1",
+                                  "sha256_multiblock"])
 def test_circuits_match_factories(name):
     """Program bytes only: compiling the ECDSA circuit would not fit the
-    tests' time budget."""
-    factory = getattr(factories, name)
-    prog, wm = getattr(circuits, name)()
+    tests' time budget.  The heavy programs come from the two ``ALL_HEAVY``
+    registries, which name the same programs."""
+    assert sorted(circuits.ALL_HEAVY) == sorted(factories.ALL_HEAVY)
+    factory = factories.ALL_HEAVY.get(name, getattr(factories, name))
+    prog, wm = circuits.ALL_HEAVY.get(name, getattr(circuits, name))()
     jprog, jwm = factory()
     assert codec.serialize_program(prog) == jcodec.serialize_program(jprog)
     assert wm == jwm

@@ -1,17 +1,24 @@
 """The ACIR programs the port proves outside its tests: the fourteen small
-example programs of ``ALL_SMALL`` (``examples/run_examples_torch.py``)
-and the ``ecdsa_secp256k1`` flagship (``chip_smoke.py``,
-``bench_torch.py``), each with its solved witness map.
+example programs of ``ALL_SMALL`` (``examples/run_examples_torch.py``),
+the heavy programs of ``ALL_HEAVY``, the ``ecdsa_secp256k1`` flagship
+(``chip_smoke.py``, ``bench_torch.py``) and the SHA-256 circuits
+(``chip_smoke.py``), each with its solved witness map.
 
 A copy of the builders from ``expr`` to ``array_dynamic``, of
-``_ecdsa_sign``, ``ecdsa_secp256k1`` and ``ALL_SMALL`` in
-``tests/factories.py``, built on the port's ``acir/ir.py``;
-``tests/test_torch_host.py`` holds the program bytes and witness maps
+``SHA_IV``, ``sha256_compress``, ``sha256_multiblock``, ``_ecdsa_sign``,
+``ecdsa_secp256k1``, ``ALL_SMALL`` and ``ALL_HEAVY`` in
+``tests/factories.py``, built on the port's ``acir/ir.py``, and of the
+one-compression circuit of ``tests/test_sha256.py``
+(``sha256_compression``); ``tests/test_torch_host.py`` and
+``tests/test_torch_sha256.py`` hold the program bytes and witness maps
 equal to the originals'.
 """
 
+import numpy as np
+
 from ..acir import ir
 from ..field.gl import P
+from ..ops.sha256 import K as SHA_K
 
 
 def expr(mul=(), lin=(), q_c=0):
@@ -197,6 +204,94 @@ def array_dynamic(values=(10, 20, 30, 40, 50), windex=3, wvalue=77,
     return program(c), wm
 
 
+# --- SHA-256 -------------------------------------------------------------------
+
+SHA_IV = [0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
+          0x510e527f, 0x9b05688c, 0x1f83d9ab, 0x5be0cd19]
+
+# The most chained blocks whose circuit still compiles to 2^20 rows: a
+# block is 39,136 builder rows and the chain 66 more, so 26 blocks take
+# 1,017,602 rows (97 % of 2^20) and 27 would take 1,056,738, past 2^20.
+SHA_LONG_BLOCKS = 26
+
+
+def sha256_compress(state, block_words):
+    """Textbook SHA-256 compression of one 16-word block (host)."""
+    M = 0xFFFFFFFF
+
+    def rotr(x, r):
+        return ((x >> r) | (x << (32 - r))) & M
+
+    w = list(block_words)
+    for i in range(16, 64):
+        s0 = rotr(w[i - 15], 7) ^ rotr(w[i - 15], 18) ^ (w[i - 15] >> 3)
+        s1 = rotr(w[i - 2], 17) ^ rotr(w[i - 2], 19) ^ (w[i - 2] >> 10)
+        w.append((w[i - 16] + s0 + w[i - 7] + s1) & M)
+    a, b, c, d, e, f, g, h = state
+    for i in range(64):
+        S1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)
+        ch = (e & f) ^ (~e & g)
+        t1 = (h + S1 + ch + SHA_K[i] + w[i]) & M
+        S0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22)
+        maj = (a & b) ^ (a & c) ^ (b & c)
+        t2 = (S0 + maj) & M
+        h, g, f, e, d, c, b, a = g, f, e, (d + t1) & M, c, b, a, (t1 + t2) & M
+    return [(x + y) & M for x, y in zip(state, (a, b, c, d, e, f, g, h))]
+
+
+def sha256_compression(seed=3):
+    """One Sha256Compression opcode: 16 random message words (from
+    ``seed``) and the IV as private inputs, the 8 output words returned;
+    2^16 rows."""
+    rng = np.random.default_rng(seed)
+    msg = [int(x) for x in rng.integers(0, 1 << 32, size=16)]
+    out = sha256_compress(SHA_IV, msg)
+    op = ir.BlackBoxSha256Compression(
+        tuple(fi(i, 32) for i in range(16)),
+        tuple(fi(16 + i, 32) for i in range(8)),
+        tuple(range(24, 32)))
+    c = circuit([op], 32, private=tuple(range(24)), ret=tuple(range(24, 32)))
+    wm = {i: v for i, v in enumerate(msg + SHA_IV + out)}
+    return program(c), wm
+
+
+def sha256_multiblock(num_blocks=2, seed=0x1234):
+    """sha256_long analog: num_blocks chained Sha256Compression opcodes —
+    block i's state inputs are block i-1's output witnesses."""
+    wm = {}
+    w = 0
+    state_ws = []
+    for i in range(8):
+        wm[w] = SHA_IV[i]
+        state_ws.append(w)
+        w += 1
+    state_vals = list(SHA_IV)
+    ops = []
+    for blk in range(num_blocks):
+        msg_ws = []
+        msg_vals = []
+        for i in range(16):
+            v = (seed * (blk * 16 + i + 1) * 2654435761) & 0xFFFFFFFF
+            wm[w] = v
+            msg_ws.append(w)
+            msg_vals.append(v)
+            w += 1
+        out_ws = list(range(w, w + 8))
+        state_vals = sha256_compress(state_vals, msg_vals)
+        for ow, ov in zip(out_ws, state_vals):
+            wm[ow] = ov
+        w += 8
+        ops.append(ir.BlackBoxSha256Compression(
+            tuple(fi(x, 32) for x in msg_ws),
+            tuple(fi(x, 32) for x in state_ws),
+            tuple(out_ws)))
+        state_ws = out_ws
+    priv = tuple(range(8)) + tuple(
+        x for op in ops for x in (f.witness for f in op.inputs))
+    c = circuit(ops, w, private=priv, ret=tuple(state_ws))
+    return program(c), wm
+
+
 def _ecdsa_sign(msg_hash: int, priv: int, k: int):
     """Host-side textbook ECDSA signature (for fixture construction only)."""
     from ..ops import secp256k1 as sec
@@ -275,4 +370,10 @@ ALL_SMALL = {
     "fibonacci": fibonacci,
     "7_function": seven_function,
     "array_dynamic": array_dynamic,
+}
+
+# Heavy programs (the sha256_long and ecdsa_secp256k1 classes)
+ALL_HEAVY = {
+    "sha256_multiblock": sha256_multiblock,
+    "ecdsa_secp256k1": ecdsa_secp256k1,
 }
