@@ -6,8 +6,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Phases, each printed as it ends; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit;
-2. build: the Poseidon2 kernels from ``tpu_acir_prover_torch/csrc``, with
-   ptxas's registers and spills per kernel;
+2. build: the Poseidon2 and field kernels from
+   ``tpu_acir_prover_torch/csrc``, one nvcc a library, started together,
+   with ptxas's registers and spills per kernel;
 3. parity: proof bytes of the port on the card equal those of the port on
    the CPU (plain twins), on a plain and a lookup circuit (test config),
    from the per-phase prover and from the fused prover's CUDA graph; the
@@ -22,9 +23,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    turns, two each, with their upper medians, bytes and peak memory; the
    synchronising calls of each; one replay under ``torch.profiler``: its
    device operations, device time, the device's idle share and each
-   Poseidon2 kernel's count and device time;
+   Poseidon2 and field kernel's count and device time;
 6. profile: one warm per-phase proof under ``torch.profiler``, the device
-   time of all kernels and of the Poseidon2 kernels;
+   time of all kernels, of the Poseidon2 kernels and of the field kernels;
 7. sharded: ``prove_sharded`` with every shard on cuda:0.  Parity: over 2
    and 4 shards on the two small circuits, bytes equal to the port's on
    the CPU.  The ECDSA circuit over 4 shards: key build, a warm proof
@@ -38,7 +39,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    bytes equal, all verified; the key build's and the per-phase proof's
    peaks beside those before the commit ran its NTTs in column blocks.
    Each of these four paths records the shapes it gives ``leaf_hash`` and
-   ``two_to_one_levels``;
+   ``two_to_one_levels``.  Then the memory still allocated on the card,
+   with no garbage collected: a dropped sharded key frees its tensors at
+   once;
 8. sha256: the SHA-256 circuits of ``utils/circuits.py``.  Parity: the
    2^16-row one-compression circuit (test config) proven per-phase and
    fused, bytes equal, both verified.  The port's CLI proves, writes the
@@ -59,7 +62,20 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    each point's last proof verified, the one over 8 shards equal to the
    port's on the CPU; the sweep records its shapes as the paths of
    [sharded] do;
-10. kernels: each kernel against its plain torch twin on the card, bit
+10. field: each field kernel (``csrc/field.cu``: ``gl_binary_kernel`` for
+    add, sub and mul, ``gl_pow_kernel``, ``ext_mul_kernel``,
+    ``ext_inv_kernel``) against its plain torch twin on the card, bit for
+    bit, at the main path's shapes: a (2^20, 43) matrix times a (2^20, 1)
+    column, the NTT's strided radix-4 views at 2^23 rows against (1, h, 1)
+    twiddles, a quotient chunk's (2^18,) inverses, round 2's (2^17,) ext
+    columns and (2^17, 16) ext inverses; then at every layout (sizes and
+    strides after the wrapper's merging) that the paths above gave a field
+    kernel, recorded as they ran: each held bit for bit, the largest of
+    each class (kernel, op, rank, broadcast dimensions) also timed; with
+    both times, the card's bound (bytes, or the products times the SASS
+    instructions of one product) and the kernel's launches in the main
+    path's run;
+11. kernels: each kernel against its plain torch twin on the card, bit
     for bit, with both times and the card's bound for the same work: at
     the main path's shapes (the grind from the ECDSA proof's own state;
     the duplex on k = 8 inputs that are views into two tensors, and a
@@ -93,6 +109,7 @@ import collections  # noqa: E402
 import contextlib  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
@@ -148,6 +165,29 @@ API_CALLS = ("translate_program", "compile_circuit", "ProvingKey", "prove",
 MADDS_PER_PERMUTATION = 736 * 8
 MADDS_PER_S = 132 * 64 * 1.98e9
 BYTES_PER_S = 3.35e12
+# The field kernels (csrc/field.cu) and the JAX package's field ops that XLA
+# fuses into its jitted phases (no pallas_call): the kernel's launch counter
+# and its profiler name, and the reference op of each case
+FIELD_SOURCE = "tpu_acir_prover_torch/csrc/field.cu"
+FIELD_KERNELS = ("gl_binary_kernel", "gl_pow_kernel", "ext_mul_kernel",
+                 "ext_inv_kernel")
+JGL = "tpu_acir_prover/field/gl.py"
+JEXT = "tpu_acir_prover/field/ext.py"
+FIELD_REPLACES = {"add": f"{JGL}:98", "sub": f"{JGL}:125",
+                  "mul": f"{JGL}:211", "pow": f"{JGL}:221",
+                  "inv": f"{JGL}:239",
+                  "ext_mul": f"{JEXT}:37", "ext_inv": f"{JEXT}:53"}
+FIELD_ROWS = 1 << 20                # the ECDSA circuit's LDE rows
+FIELD_NTT_ROWS = 1 << 23            # mul_chain 2^20's LDE rows
+FIELD_NTT_COLS = 8                  # a column block of 2^26 LDE elements
+FIELD_NTT_HALF = 1 << 10            # h of a radix-4 pass, (-1, 2, 2, h, c)
+FIELD_TRACE_ROWS = 1 << 17          # the ECDSA trace: round 2's rows
+FIELD_CHUNK = 1 << 18               # a quotient chunk (QUOTIENT_CHUNK)
+FIELD_WIRES = 16                    # the ECDSA circuit's wire columns
+FIELD_OPS = ("add", "sub", "mul")   # gl_binary_kernel's op codes
+# The Goldilocks products of one inverse: gl_inv's addition chain for
+# p - 2 in csrc/field.cu, 64 squarings and 9 multiplies
+INV_PRODUCTS = 64 + 9
 # The duplex's bound is one of latency: the dependent Goldilocks products
 # on its critical path (8 external rounds x a three-deep S-box, 22 internal
 # rounds x (S-box + the diagonal product)) times the measured latency of
@@ -158,6 +198,20 @@ DUPLEX_CHAIN_PRODUCTS = 8 * 3 + 22 * (3 + 1)
 
 def say(msg):
     print(msg, flush=True)
+
+
+def reset_launches():
+    """Sets every kernel wrapper's launch count to 0."""
+    from tpu_acir_prover_torch.kernels import field as kf
+    from tpu_acir_prover_torch.kernels import poseidon as kp
+    kp.reset_launches()
+    kf.reset_launches()
+
+
+def all_launches():
+    """Every kernel wrapper's launch count, Poseidon2's and the field's."""
+    from tpu_acir_prover_torch.prover.fused import all_launches
+    return all_launches()
 
 
 def bound(permutations, nbytes):
@@ -261,15 +315,24 @@ def phase_device():
 
 
 def phase_build():
+    """Both CUDA libraries, each by its own nvcc, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpu_acir_prover_torch.kernels import field as kf
     from tpu_acir_prover_torch.kernels import poseidon as kp
     t0 = time.perf_counter()
-    lib = kp.build()
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda m: m.build(), (kp, kf)))
     kp.permute(torch.zeros((1, 12), dtype=torch.int64, device="cuda"))
+    one = torch.ones((1,), dtype=torch.int64, device="cuda")
+    kf.mul(one, one)
     torch.cuda.synchronize()
-    say(f"[build] {lib.name} built and loaded in "
+    reset_launches()
+    say(f"[build] {', '.join(lib.name for lib in libs)} built and loaded in "
         f"{time.perf_counter() - t0:.3f} s")
-    for line in kp.ptxas_report():
-        say(f"[build] ptxas: {line}")
+    for m in (kp, kf):
+        for line in m.ptxas_report():
+            say(f"[build] ptxas: {line}")
 
 
 def _twin_rows(t):
@@ -445,6 +508,271 @@ def phase_kernels(grind_state, grind_lane, main_launches, paths):
     return records
 
 
+def _read_bytes(t):
+    """Bytes of ``t``'s distinct elements: a broadcast (stride 0) dimension
+    is read once."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        n *= size if stride else 1
+    return 8 * n
+
+
+def _sass_per_product():
+    """(IMAD-class, all) SASS instructions of one Goldilocks product in the
+    field library: gl_binary_kernel<MUL> less gl_binary_kernel<ADD> (the
+    same kernel but for the op), by the toolkit's ``cuobjdump -sass``."""
+    import re
+    from pathlib import Path
+
+    from tpu_acir_prover_torch.kernels import field as kf
+    from tpu_acir_prover_torch.kernels import nvcc
+    tool = Path(nvcc.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(kf.build())],
+                          capture_output=True, text=True, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = line.split("Function :", 1)[1].strip()
+            counts[cur] = [0, 0]
+        elif cur and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[cur][1] += 1
+            counts[cur][0] += "IMAD" in line
+
+    def of(op):
+        names = [k for k in counts if f"gl_binary_kernelILi{op}EE" in k]
+        if len(names) != 1:
+            raise AssertionError(f"gl_binary_kernel<{op}> in the SASS: "
+                                 f"{names}")
+        return counts[names[0]]
+
+    (mi, ma), (ai, aa) = of(2), of(0)
+    return mi - ai, ma - aa
+
+
+@contextlib.contextmanager
+def field_layouts(seen):
+    """While open, counts in ``seen[layout][path]`` the field kernels'
+    launches by the layout the wrapper gave the kernel: (kernel, op or
+    exponent, sizes, strides per operand), after its merging of
+    dimensions; ``path`` is the name last given to the function this
+    yields.  The wrappers run unchanged and count their own launches."""
+    from tpu_acir_prover_torch.kernels import field as kf
+    launch, path = kf._launch, ["-"]
+
+    def spy(what, fn, dev, *args):
+        n, rank, sizes, strides = args[-4:]
+        arg = FIELD_OPS[args[0]] if what == "gl_binary" else \
+            args[1] if what == "gl_pow" else None
+        per = tuple(tuple(strides[k * rank:(k + 1) * rank])
+                    for k in range(len(strides) // rank))
+        seen[(what, arg, tuple(sizes), per)][path[0]] += 1
+        return launch(what, fn, dev, *args)
+
+    def on(name):
+        path[0] = name
+
+    kf._launch = spy
+    try:
+        yield on
+    finally:
+        kf._launch = launch
+
+
+def _field_calls(what, arg):
+    """(op, kernel, twin, products an element) of a field kernel and its
+    op or exponent; kernel and twin take the operands in the order of the
+    kernel's strides and return a list of outputs."""
+    from tpu_acir_prover_torch.field import ext_plain, gl_plain
+    from tpu_acir_prover_torch.kernels import field as kf
+    if what == "gl_binary":
+        return (arg, lambda x: [getattr(kf, arg)(*x)],
+                lambda x: [getattr(gl_plain, arg)(*x)], int(arg == "mul"))
+    if what == "gl_pow":
+        inv = arg == gl_plain.P - 2
+        return ("inv" if inv else "pow",
+                lambda x: [kf.pow_const(x[0], arg)],
+                lambda x: [gl_plain.pow_const(x[0], arg)],
+                INV_PRODUCTS if inv else
+                arg.bit_length() - 1 + bin(arg).count("1"))
+    if what == "ext_mul":
+        return ("ext_mul", lambda x: list(kf.ext_mul(x[:2], x[2:])),
+                lambda x: list(ext_plain.mul(x[:2], x[2:])), 4)
+    return ("ext_inv", lambda x: list(kf.ext_inv(x)),
+            lambda x: list(ext_plain.inv(x)), INV_PRODUCTS + 4)
+
+
+def _hold_field(x, kern, twin, what, reps):
+    """The kernel's outputs on operands ``x`` against the twin's, bit for
+    bit; (max_abs_err, n, outputs, kernel ms, twin ms), the times None for
+    reps = 0."""
+    from tpu_acir_prover_torch.kernels.bench import cuda_ms
+    got = kern(x)
+    if reps:
+        want, plain_ms = _once_ms(lambda: twin(x))
+        ms = cuda_ms(lambda: kern(x), reps)
+    else:
+        want, plain_ms, ms = twin(x), None, None
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err != 0 or not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{what}: kernel differs from the plain twin "
+                             f"(max abs err {err})")
+    return err, got[0].numel(), len(got), ms, plain_ms
+
+
+def _field_bound(x, n, outputs, products, per_product):
+    """(bound_ms, bound_by, bytes) of a field kernel's work: its distinct
+    operand elements read once and its outputs written once over the
+    memory rate, or its products times the SASS instructions of one over
+    the multiply-add rate, whichever is longer."""
+    nbytes = sum(_read_bytes(t) for t in x) + 8 * n * outputs
+    ops_ms = n * products * per_product / MADDS_PER_S * 1e3
+    bytes_ms = nbytes / BYTES_PER_S * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations", nbytes
+    return bytes_ms, "bytes", nbytes
+
+
+def phase_field(main_launches, seen):
+    """Each field kernel against its plain twin on the card, bit for bit,
+    at the main path's shapes, then at every layout the paths gave it
+    (``seen``, from ``field_layouts``), with its time, the twin's and the
+    card's bound; returns one record per kernel and timed shape."""
+    from tpu_acir_prover_torch.field import gl_plain
+    from tpu_acir_prover_torch.kernels import field as kf
+    from tpu_acir_prover_torch.kernels.bench import field_input
+    rng = np.random.default_rng(2025)
+    dev = torch.device("cuda")
+    per_product, instructions = _sass_per_product()
+    say(f"[field] one Goldilocks product in field.cu: {per_product} "
+        f"IMAD-class of {instructions} SASS instructions (cuobjdump); an "
+        f"inverse is {INV_PRODUCTS} products (gl_inv's addition chain)")
+
+    def col(n, c):
+        return field_input(rng, (n, c), dev)
+
+    def ntt_views():
+        h, c = FIELD_NTT_HALF, FIELD_NTT_COLS
+        v = col(FIELD_NTT_ROWS, c).reshape(-1, 2, 2, h, c)
+        tw = field_input(rng, (h,), dev).reshape(1, h, 1)
+        return v[:, 0, 0], v[:, 0, 1], tw
+
+    def ext_cols():
+        n, w = FIELD_TRACE_ROWS, FIELD_WIRES
+        x0, x1, y0, y1 = (col(n, w) for _ in range(4))
+        return (x0[:, 3], x1[:, 3], y0[:, 5], y1[:, 5])
+
+    def lookup_factors():
+        n, w = FIELD_TRACE_ROWS, FIELD_WIRES
+        return (col(n, w), field_input(rng, (), dev).expand(n, w))
+
+    ntt = {}
+
+    def ntt_mul():
+        a, b, tw = ntt_views()
+        ntt["a"], ntt["t"] = a, kf.mul(b, tw)
+        return (b, tw)
+
+    # (kernel, op or exponent, shape, make the operands)
+    cases = [
+        ("gl_binary", "mul", "(2^20, 43) x (2^20, 1): a column of "
+         "coset-shift powers", lambda: (col(FIELD_ROWS, 43),
+                                        col(FIELD_ROWS, 1))),
+        ("gl_binary", "mul", "NTT radix-4 pass at 2^23 rows x 8 columns, "
+         "h = 2^10: v[:, 0, 1] of (-1, 2, 2, h, 8) x the (1, h, 1) "
+         "twiddles", ntt_mul),
+        ("gl_binary", "add", "NTT radix-4 pass at 2^23 rows: v[:, 0, 0] + "
+         "the product (contiguous)", lambda: (ntt["a"], ntt["t"])),
+        ("gl_binary", "sub", "NTT radix-4 pass at 2^23 rows: v[:, 0, 0] - "
+         "the product (contiguous)", lambda: (ntt["a"], ntt["t"])),
+        ("gl_pow", gl_plain.P - 2, "(2^18,): a quotient chunk's l1 "
+         "denominators, e = p - 2",
+         lambda: (col(FIELD_CHUNK, 1).reshape(-1),)),
+        ("ext_mul", None, "(2^17,) ext columns of (2^17, 16) pairs "
+         "(stride 16): round 2's group products", ext_cols),
+        ("ext_inv", None, "(2^17, 16): round 2's lookup factors (lam0 - w, "
+         "lam1 broadcast)", lookup_factors),
+    ]
+    records = []
+
+    def record(name, op, shape, x, kern, twin, products, path, extra):
+        what = f"{name} ({op}) {shape}"
+        err, n, outs, ms, plain_ms = _hold_field(x, kern, twin, what, 10)
+        bound_ms, bound_by, nbytes = _field_bound(x, n, outs, products,
+                                                  per_product)
+        say(f"[field] {what}: bit-identical to the plain twin; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}: {nbytes} bytes, {n * products} products), "
+            f"{bound_ms / ms:.1%} of bound; main path: "
+            f"{main_launches[name]} launches")
+        records.append({
+            "name": name, "route": "cuda", "source": FIELD_SOURCE,
+            "replaces": FIELD_REPLACES[op], "launches": main_launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": shape, "op": op, "path": path,
+            "launches_in": "the CLI's run (one eager proof, then the graph's "
+            "capture)", "bound_kind": "throughput", "bytes": nbytes,
+            "products": n * products, "sass_per_product": per_product,
+            **extra})
+
+    for name, arg, shape, make in cases:
+        op, kern, twin, products = _field_calls(name, arg)
+        record(name, op, shape, list(make()), kern, twin, products,
+               "main: the CLI's ECDSA prove", {})
+    ntt.clear()
+
+    # every recorded layout, its operands read through it from one pool of
+    # values, each operand from a region of its own (so that no operand's
+    # reads hit another's in the cache); a class is (kernel, op, rank,
+    # broadcast dimensions of each operand)
+    if not seen:
+        raise AssertionError("the paths recorded no field kernel launch")
+    span = max(1 + sum((s - 1) * x for s, x in zip(sizes, st))
+               for _, _, sizes, strides in seen for st in strides)
+    pool = field_input(rng, (4 * span,), dev)     # at most 4 operands
+    classes = collections.defaultdict(list)
+    for key in seen:
+        what, arg, sizes, strides = key
+        zero = tuple(tuple(x == 0 for x in st) for st in strides)
+        classes[(what, arg, len(sizes), zero)].append(key)
+    t0 = time.perf_counter()
+    for cls, keys in sorted(classes.items(), key=lambda kv: str(kv[0])):
+        keys.sort(key=lambda k: math.prod(k[2]))
+        what, arg = cls[:2]
+        op, kern, twin, products = _field_calls(what, arg)
+
+        def operands(key):
+            x = [torch.as_strided(pool, key[2], st, k * span)
+                 for k, st in enumerate(key[3])]
+            if kf.layout(*x)[1:] != (list(key[2]), [list(s) for s in key[3]]):
+                raise AssertionError(f"{key}: the operands' layout is "
+                                     f"{kf.layout(*x)[1:]}")
+            return x
+
+        for key in keys[:-1]:
+            _hold_field(operands(key), kern, twin, f"{what} ({op}) {key[2:]}",
+                        0)
+        sizes, strides = keys[-1][2:]
+        x = operands(keys[-1])
+        calls = collections.Counter()
+        for key in keys:
+            calls.update(seen[key])
+        say(f"[field] {what} ({op}) rank {len(sizes)}: {len(keys)} "
+            f"recorded layouts bit-identical to the plain twin; calls by "
+            f"path {dict(calls)}")
+        record(what, op, f"recorded layout: sizes {list(sizes)}, strides "
+               f"{[list(st) for st in strides]}", x, kern, twin, products,
+               ", ".join(sorted(seen[keys[-1]])),
+               {"layouts_in_class": len(keys),
+                "calls_at_layout": dict(seen[keys[-1]]),
+                "calls_in_class": dict(calls)})
+        del x
+    say(f"[field] {len(seen)} recorded layouts in {len(classes)} classes "
+        f"held in {time.perf_counter() - t0:.1f} s")
+    return records
+
+
 def _small_circuits():
     from tpu_acir_prover_torch.acir.translator import translate_program
     from tpu_acir_prover_torch.circuit.builder import CircuitBuilder
@@ -501,14 +829,14 @@ def phase_main_path(work):
     proof_path = os.path.join(work, "proof")
     vk_path = os.path.join(work, "vk")
 
-    kp.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     if cli.main(["prove", "-b", prog_path, "-w", wit_path, "-o", proof_path,
                  "--device", "cuda"]) != 0:
         raise AssertionError("cli prove failed")
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    launches = dict(kp.launches)
+    launches = all_launches()
     if cli.main(["write_vk", "-b", prog_path, "-o", vk_path,
                  "--device", "cuda"]) != 0:
         raise AssertionError("cli write_vk failed")
@@ -620,7 +948,7 @@ def _in_turns(pk, ext, data, phase):
         timer = PhaseTimer()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        kp.reset_launches()
+        reset_launches()
         kp.grind = spy   # the per-phase proof calls it; a replay does not
         try:
             t0 = time.perf_counter()
@@ -629,7 +957,7 @@ def _in_turns(pk, ext, data, phase):
             dt = time.perf_counter() - t0
         finally:
             kp.grind = real_grind
-        launches = f"; launches {dict(kp.launches)}" \
+        launches = f"; launches {all_launches()}" \
             if name == "per-phase" else ""
         times[name].append(dt)
         peaks[name].append(torch.cuda.max_memory_allocated())
@@ -685,15 +1013,16 @@ def profile_replay(pk, ext):
     say(f"[fused] one replay (inputs in, replay, outputs out): wall "
         f"{wall * 1e3:.1f} ms (median of 3); under the profiler "
         f"{total_n} device operations, {total_us / 1e3:.1f} ms of device "
-        f"time, idle share {1 - total_us / 1e6 / wall:.1%}; Poseidon2 "
-        f"kernels in the replay (count = device time): {per}; wrapper "
+        f"time, idle share {1 - total_us / 1e6 / wall:.1%}; Poseidon2 and "
+        f"field kernels in the replay (count = device time): {per}; wrapper "
         f"counts the capture recorded: {cap.launches}")
 
 
 def _device_totals(prof, DeviceType):
-    """(device us, device operations, {Poseidon2 kernel: [count, us]})."""
+    """(device us, device operations, {Poseidon2 or field kernel: [count,
+    us]})."""
     total_us = total_n = 0
-    ours = {k: [0, 0.0] for k in POSEIDON_KERNELS}
+    ours = {k: [0, 0.0] for k in POSEIDON_KERNELS + FIELD_KERNELS}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -702,7 +1031,7 @@ def _device_totals(prof, DeviceType):
             us = e.self_cuda_time_total
         total_us += us
         total_n += e.count
-        for k in POSEIDON_KERNELS:
+        for k in ours:
             if k in e.key:
                 ours[k][0] += e.count
                 ours[k][1] += us
@@ -727,11 +1056,13 @@ def profile_proof(pk, ext):
         say("[profile] the profiler recorded no device activity: device time "
             "not measured")
         return
-    poseidon_ms = sum(t for _, t in ours.values()) / 1e3
+    poseidon_ms = sum(ours[k][1] for k in POSEIDON_KERNELS) / 1e3
+    field_ms = sum(ours[k][1] for k in FIELD_KERNELS) / 1e3
     per = ", ".join(f"{k} {n} x {t / 1e3:.3f} ms" for k, (n, t) in ours.items())
     say(f"[profile] warm per-phase prove under the profiler {wall_s:.3f} s: "
         f"{total_n} device operations, {total_us / 1e3:.1f} ms of device "
-        f"time; Poseidon2 kernels {poseidon_ms:.3f} ms ({per})")
+        f"time; Poseidon2 kernels {poseidon_ms:.3f} ms, field kernels "
+        f"{field_ms:.3f} ms ({per})")
 
 
 def _timed_proof(prover, key, ext, tag, log):
@@ -743,13 +1074,13 @@ def _timed_proof(prover, key, ext, tag, log):
     timer = PhaseTimer()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kp.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     with shapes_seen(log):
         proof = prover(key, ext, timer=timer)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(kp.launches)
+    launches = all_launches()
     missing = [k for k in SHARDED_PATH if launches[k] == 0]
     if missing:
         raise AssertionError(f"{tag} launched no {missing}")
@@ -844,7 +1175,7 @@ def _fused_on_key(pk, ext, want, tag, phase):
     log = collections.Counter()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kp.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     with shapes_seen(log):
         first = prove_fused(pk, ext)
@@ -937,14 +1268,14 @@ def _sha256_parity():
     cc = compile_circuit(tr.builder)
     ext = tr.external_values(wm)
     log = collections.Counter()
-    kp.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     with shapes_seen(log):
         pk = ProvingKey(cc, TEST_CONFIG, device="cuda")
         proof = prove(pk, ext)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    launches = dict(kp.launches)
+    launches = all_launches()
     fused = prove_fused(pk, ext)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -996,7 +1327,7 @@ def _sha256_cli(work):
     proof_path = os.path.join(work, "sha2.proof")
     vk_path = os.path.join(work, "sha2.vk")
     calls, log = {}, collections.Counter()
-    kp.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     with shapes_seen(log), timed_calls(api, API_CALLS, calls):
         if cli.main(["prove", "-b", prog_path, "-w", wit_path, "-o",
@@ -1004,7 +1335,7 @@ def _sha256_cli(work):
             raise AssertionError(f"{tag}: cli prove failed")
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    launches = dict(kp.launches)
+    launches = all_launches()
     if cli.main(["write_vk", "-b", prog_path, "-o", vk_path,
                  "--device", "cuda"]) != 0:
         raise AssertionError(f"{tag}: cli write_vk failed")
@@ -1057,12 +1388,12 @@ def _sha256_long(work, cli_rows):
     prog_path, wit_path = _save_program(work, "sha_long", prog, wm)
     calls, log = {}, collections.Counter()
     timer = PhaseTimer()
-    kp.reset_launches()
+    reset_launches()
     with shapes_seen(log), timed_calls(api, API_CALLS, calls):
         data = api.prove_file(prog_path, wit_path,
                               os.path.join(work, "sha_long.proof"),
                               STANDARD_CONFIG, "cuda", timer=timer)
-    launches = dict(kp.launches)
+    launches = all_launches()
     tr, pk = api.load_and_compile(prog_path, STANDARD_CONFIG, "cuda")
     tag = f"sha256_multiblock({blocks}) 2^{pk.compiled.log_n}"
     if "prove" not in calls:
@@ -1117,14 +1448,14 @@ def phase_scaling():
     from tpu_acir_prover_torch.prover.verify import verify
 
     points, log = [], collections.Counter()
-    kp.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     with shapes_seen(log):
         line = scaling.sweep(
             "cuda:0", scaling.LOG_PER_SHARD, SCALING_REPS,
             check=lambda spk, proof: points.append(
                 (len(spk.mesh.devices), spk.compiled, spk.vk, proof)))
-    launches = dict(kp.launches)
+    launches = all_launches()
     sweep_s = time.perf_counter() - t0
     missing = [k for k in SHARDED_PATH if launches[k] == 0]
     if missing:
@@ -1221,25 +1552,41 @@ def phase_mul_chain():
 def main():
     smi = phase_device()
     phase_build()
-    phase_parity()
-    with tempfile.TemporaryDirectory() as work:
-        launches, pk, ext, data = phase_main_path(work)
-    (grind_state, grind_lane), per_phase = phase_fused(pk, ext, data)
-    profile_proof(pk, ext)
+    # every field kernel launch of the paths below, by layout and path
+    seen = collections.defaultdict(collections.Counter)
+    with field_layouts(seen) as on_path:
+        on_path("parity")
+        phase_parity()
+        on_path("main")
+        with tempfile.TemporaryDirectory() as work:
+            launches, pk, ext, data = phase_main_path(work)
+        on_path("fused")
+        (grind_state, grind_lane), per_phase = phase_fused(pk, ext, data)
+        profile_proof(pk, ext)
+        t0 = time.perf_counter()
+        on_path("sharded")
+        paths = [phase_sharded(pk, ext, data, per_phase)]
+        # the CLI's key and its graph's pool are not needed any more
+        from tpu_acir_prover_torch import api
+        api._CACHE.clear()
+        del pk
+        torch.cuda.empty_cache()
+        on_path("mul_chain")
+        paths += phase_mul_chain()
+        say(f"[sharded] phase took {time.perf_counter() - t0:.1f} s; then, "
+            f"with no garbage collected, "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated on "
+            "the card (the dropped sharded keys freed at once)")
+        torch.cuda.empty_cache()
+        on_path("sha256")
+        paths += phase_sha256()
+        on_path("scaling")
+        paths.append(phase_scaling())
     t0 = time.perf_counter()
-    paths = [phase_sharded(pk, ext, data, per_phase)]
-    # the CLI's key and its graph's pool are not needed any more
-    from tpu_acir_prover_torch import api
-    api._CACHE.clear()
-    del pk
-    torch.cuda.empty_cache()
-    paths += phase_mul_chain()
-    say(f"[sharded] phase took {time.perf_counter() - t0:.1f} s")
-    torch.cuda.empty_cache()
-    paths += phase_sha256()
-    paths.append(phase_scaling())
+    records = phase_field(launches, seen)
+    say(f"[field] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    records = phase_kernels(grind_state, grind_lane, launches, paths)
+    records += phase_kernels(grind_state, grind_lane, launches, paths)
     say(f"[kernels] phase took {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"kernels": records}))
     say(smi)

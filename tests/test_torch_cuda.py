@@ -1,5 +1,7 @@
-"""The Poseidon2 CUDA kernels against their plain torch twins, on the card,
-bit for bit; the fused prover's CUDA graph against the per-phase prover on
+"""The Poseidon2 and field CUDA kernels against their plain torch twins, on
+the card, bit for bit (the field kernels also on 0-d, broadcast, strided
+and empty operands, on a second card where there is one, and inside a
+captured CUDA graph); the fused prover's CUDA graph against the per-phase prover on
 the card, also with commits over several column blocks; the sharded
 prover and FRI layer with every shard on the card against their CPU
 runs.
@@ -19,9 +21,11 @@ import torch
 from tpu_acir_prover_torch.acir.translator import translate_program
 from tpu_acir_prover_torch.circuit.builder import CircuitBuilder
 from tpu_acir_prover_torch.circuit.compile import compile_circuit
-from tpu_acir_prover_torch.field import gl
+from tpu_acir_prover_torch.field import ext as E
+from tpu_acir_prover_torch.field import ext_plain, gl, gl_plain
 from tpu_acir_prover_torch.field import poseidon as plain
 from tpu_acir_prover_torch.field.gl import P
+from tpu_acir_prover_torch.kernels import field as kf
 from tpu_acir_prover_torch.kernels import poseidon as kp
 from tpu_acir_prover_torch.parallel.fri import (layer_inv2x_padded,
                                                 make_sharded_fri_layer)
@@ -65,6 +69,174 @@ def test_leaf_hash_kernel_matches_twin(cuda, c):
         got = kp.leaf_hash(x)
         assert kp.launches["leaf_hash"] == n0 + 1
         assert torch.equal(got, plain.hash_no_pad(x)), (c, rows)
+
+
+# tests/test_torch_field.py's edge values
+FIELD_EDGES = np.array([0, 1, 2, P - 1, P - 2, (1 << 32) - 1, 1 << 32,
+                        (1 << 32) + 1, 1 << 63, P >> 1], dtype=np.uint64)
+POW_E = 0xDEADBEEF12345678 % P
+# op: (operands, kernel, plain twin, launch counter)
+FIELD_OPS = {
+    "add": (2, lambda t: [kf.add(*t)], lambda t: [gl_plain.add(*t)],
+            "gl_binary"),
+    "sub": (2, lambda t: [kf.sub(*t)], lambda t: [gl_plain.sub(*t)],
+            "gl_binary"),
+    "mul": (2, lambda t: [kf.mul(*t)], lambda t: [gl_plain.mul(*t)],
+            "gl_binary"),
+    "inv": (1, lambda t: [kf.pow_const(t[0], P - 2)],
+            lambda t: [gl_plain.inv(t[0])], "gl_pow"),
+    "pow": (1, lambda t: [kf.pow_const(t[0], POW_E)],
+            lambda t: [gl_plain.pow_const(t[0], POW_E)], "gl_pow"),
+    "pow0": (1, lambda t: [kf.pow_const(t[0], 0)],
+             lambda t: [gl_plain.pow_const(t[0], 0)], "gl_pow"),
+    "ext_mul": (4, lambda t: list(kf.ext_mul(t[:2], t[2:])),
+                lambda t: list(ext_plain.mul(t[:2], t[2:])), "ext_mul"),
+    "ext_inv": (2, lambda t: list(kf.ext_inv(t)),
+                lambda t: list(ext_plain.inv(t)), "ext_inv"),
+}
+
+
+def _field_values(n, seed, k):
+    """n values: operand k of every pair of edge values first (operand 0
+    repeats each edge, operand 1 tiles them), then random canonical ones."""
+    e = FIELD_EDGES.size
+    pairs = np.repeat(FIELD_EDGES, e) if k % 2 == 0 else np.tile(FIELD_EDGES,
+                                                                   e)
+    v = np.random.default_rng(seed).integers(0, P, size=max(n, e * e),
+                                             dtype=np.uint64)
+    v[:e * e] = pairs
+    return v[:n]
+
+
+def _field_operands(layout, count, dev, seed=0):
+    """``count`` int64 operands on ``dev`` in one of the layouts the
+    prover gives the field ops."""
+    out = []
+    for k in range(count):
+        def make(shape):
+            n = int(np.prod(shape))
+            v = _field_values(n, seed + k, k).reshape(shape)
+            return gl.from_u64(v, dev).reshape(shape)
+        if layout == "dense":
+            out.append(make((1000,)))
+        elif layout == "0-d":
+            out.append(make(()) if k == 0 else make((37, 5)))
+        elif layout == "row":
+            out.append(make((1, 64)) if k % 2 == 0 else make((33, 64)))
+        elif layout == "column":
+            out.append(make((33, 1)) if k % 2 == 0 else make((33, 64)))
+        elif layout == "strided":
+            # the NTT's v[:, 0, 1] of a (-1, 2, 2, h, c) reshape, and the
+            # (1, h, 1) twiddles
+            if k % 2 == 0:
+                out.append(make((512, 3)).reshape(-1, 2, 2, 4, 3)[:, 0, 1])
+            else:
+                out.append(make((4,)).reshape(1, 4, 1))
+        elif layout == "transposed":
+            out.append(make((20, 7)).t() if k % 2 == 0
+                       else make((7, 20))[:, ::1])
+        elif layout == "empty":
+            out.append(make((0, 5)) if k % 2 == 0 else make((1, 5)))
+    return out
+
+
+FIELD_LAYOUTS = ["dense", "0-d", "row", "column", "strided", "transposed",
+                 "empty"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", FIELD_LAYOUTS)
+@pytest.mark.parametrize("op", sorted(FIELD_OPS))
+def test_field_kernel_matches_twin(cuda, op, layout):
+    count, kern, twin, counter = FIELD_OPS[op]
+    ops = _field_operands(layout, count, cuda)
+    n0 = kf.launches[counter]
+    got = kern(ops)
+    want = twin(ops)
+    assert kf.launches[counter] == n0 + (want[0].numel() > 0)
+    for g, w in zip(got, want):
+        assert g.is_contiguous() and g.device == w.device
+        assert g.shape == w.shape and torch.equal(g, w), (op, layout)
+
+
+@pytest.mark.cuda
+def test_field_ops_reach_the_kernels_through_gl_and_ext(cuda):
+    a, b = _field_operands("column", 2, cuda)
+    before = dict(kf.launches)
+    results = [gl.add(a, b), gl.sub(a, b), gl.mul(a, b), gl.sqr(a),
+               gl.mul_const(b, 7), gl.pow_const(a, 5), gl.inv(b),
+               *E.mul((a, b), (b, a)), *E.inv((a, b)), *E.sqr((a, b))]
+    want = [gl_plain.add(a, b), gl_plain.sub(a, b), gl_plain.mul(a, b),
+            gl_plain.sqr(a), gl_plain.mul_const(b, 7),
+            gl_plain.pow_const(a, 5), gl_plain.inv(b),
+            *ext_plain.mul((a, b), (b, a)), *ext_plain.inv((a, b)),
+            *ext_plain.mul((a, b), (a, b))]
+    for g, w in zip(results, want):
+        assert torch.equal(g, w)
+    grew = {k: kf.launches[k] - before[k] for k in before}
+    assert grew == {"gl_binary": 5, "gl_pow": 2, "ext_mul": 2, "ext_inv": 1}
+
+
+@pytest.mark.cuda
+def test_field_kernels_on_a_second_card(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        for op, (count, kern, twin, _) in sorted(FIELD_OPS.items()):
+            ops = _field_operands("column", count, dev, seed=5)
+            got = kern(ops)
+            for g, w in zip(got, twin(ops)):
+                assert g.device == dev and torch.equal(g, w), op
+
+
+@pytest.mark.cuda
+def test_field_kernels_in_a_cuda_graph(cuda):
+    """A chain of every field kernel captured in a CUDA graph, replayed on
+    new inputs copied into the captured ones, against the twins' chain."""
+    a, b = (torch.empty((33, 64), dtype=torch.int64, device=cuda)
+            for _ in range(2))
+    col = torch.empty((33, 1), dtype=torch.int64, device=cuda)
+
+    def chain(g, x, y, c):
+        s = g["mul"](g["add"](x, c), g["sub"](y, c))
+        t = g["inv"](s)
+        e = g["ext_mul"]((s, t), (x, c))
+        return list(g["ext_inv"](e)) + [g["pow"](t)]
+
+    kern = {"add": kf.add, "sub": kf.sub, "mul": kf.mul,
+            "inv": lambda x: kf.pow_const(x, P - 2),
+            "pow": lambda x: kf.pow_const(x, POW_E),
+            "ext_mul": kf.ext_mul, "ext_inv": kf.ext_inv}
+    twin = {"add": gl_plain.add, "sub": gl_plain.sub, "mul": gl_plain.mul,
+            "inv": gl_plain.inv,
+            "pow": lambda x: gl_plain.pow_const(x, POW_E),
+            "ext_mul": ext_plain.mul, "ext_inv": ext_plain.inv}
+
+    def load(seed):
+        x, y = _field_operands("row", 2, cuda, seed)
+        a.copy_(x.expand(33, 64))
+        b.copy_(y)
+        col.copy_(_field_operands("column", 1, cuda, seed + 7)[0])
+
+    load(0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain(kern, a, b, col)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n0 = dict(kf.launches)
+    with torch.cuda.graph(graph):
+        out = chain(kern, a, b, col)
+    assert {k: kf.launches[k] - n0[k] for k in n0} == \
+        {"gl_binary": 3, "gl_pow": 2, "ext_mul": 1, "ext_inv": 1}
+    for seed in (11, 12):
+        load(seed)
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w in zip(out, chain(twin, a, b, col)):
+            assert torch.equal(g, w), seed
 
 
 @functools.lru_cache(maxsize=None)
@@ -214,7 +386,8 @@ def test_fused_graph_bytes_equal_per_phase(cuda, name):
     # transcript duplexes with its own kernel
     held = pk._captured.launches
     assert held["permute"] == 0
-    assert all(held[k] > 0 for k in kp.launches if k != "permute")
+    assert all(held[k] > 0 for k in {**kp.launches, **kf.launches}
+               if k != "permute")
 
 
 @pytest.mark.cuda

@@ -30,12 +30,37 @@ def _vals(seed, n=400):
 
 
 def _t(v):
-    return gl.from_u64(v, "cpu")
+    """A u64 array as a tensor of its shape (0-d included)."""
+    return gl.from_u64(v, "cpu").reshape(np.shape(v))
 
 
 def _limbs(v):
+    v = np.asarray(v, dtype=np.uint64)
     return ((v & np.uint64(0xFFFFFFFF)).astype(np.uint32),
             (v >> np.uint64(32)).astype(np.uint32))
+
+
+# broadcast operand shapes the prover gives the field ops
+BROADCAST = [((64, 5), (64, 1)), ((), (9, 4)), ((1, 8, 1), (4, 8, 3)),
+             ((6, 1), (1, 7)), ((12,), ())]
+
+
+def _shaped(shape, seed):
+    """Canonical values of a shape from a seed, the edge values first."""
+    v = np.random.default_rng(seed).integers(0, P, size=shape,
+                                             dtype=np.uint64).reshape(-1)
+    k = min(v.size, len(EDGES))
+    v[:k] = np.array(EDGES[:k], dtype=np.uint64)
+    return v.reshape(shape)
+
+
+def _sid(shape):
+    return "x".join(map(str, shape)) or "0d"
+
+
+def _u(t):
+    """A tensor's u64 values in its shape (0-d included)."""
+    return gl.to_u64(t).reshape(tuple(t.shape))
 
 
 BINARY = {
@@ -75,14 +100,22 @@ def test_inv_matches_s_inv():
     assert [int(x) for x in got] == [s_inv(int(x)) if x else 0 for x in a]
 
 
-@pytest.mark.parametrize("c,e", [(7, 0), (P - 1, 1), (1 << 32, 5),
-                                 (12345678901234567, P - 2)])
-def test_mul_const_and_pow_const(c, e):
-    a = _vals(7, n=32)
-    assert np.array_equal(gl.to_u64(gl.mul_const(_t(a), c)),
+@pytest.mark.parametrize("c,e,shape", [
+    *(pytest.param(c, e, None, id=f"{c}-{e}")
+      for c, e in [(7, 0), (P - 1, 1), (1 << 32, 5),
+                   (12345678901234567, P - 2)]),
+    *(pytest.param(12345, e, shapes[1], id=f"{e}-{_sid(shapes[1])}")
+      for shapes in BROADCAST for e in [0, 1, 7, 1000003, P - 2])])
+def test_mul_const_and_pow_const(c, e, shape):
+    # shape None: a row of values; else the values of that shape (inv too
+    # where e = p - 2)
+    a = _vals(7, n=32) if shape is None else _shaped(shape, e % 97)
+    assert np.array_equal(_u(gl.mul_const(_t(a), c)),
                           G.to_u64(G.mul_const(_limbs(a), c)))
-    assert np.array_equal(gl.to_u64(gl.pow_const(_t(a), e)),
+    assert np.array_equal(_u(gl.pow_const(_t(a), e)),
                           G.to_u64(G.pow_const(_limbs(a), e)))
+    if shape is not None and e == P - 2:
+        assert np.array_equal(_u(gl.inv(_t(a))), G.to_u64(G.inv(_limbs(a))))
 
 
 def test_select_eq_is_zero():
@@ -126,14 +159,24 @@ EXT_BINARY = {"add": (E.add, EXT.add), "sub": (E.sub, EXT.sub),
               "mul": (E.mul, EXT.mul)}
 
 
-@pytest.mark.parametrize("op", sorted(EXT_BINARY))
-def test_ext_binary_matches_numpy_ext(op):
-    (x0, x1), (y0, y1) = _ext_pair(20), _ext_pair(21)
+@pytest.mark.parametrize("op,shapes", [
+    *(pytest.param(op, None, id=op) for op in sorted(EXT_BINARY)),
+    *(pytest.param("mul", (sa, sb), id=f"mul-{_sid(sa)}-{_sid(sb)}")
+      for sa, sb in BROADCAST)])
+def test_ext_binary_matches_numpy_ext(op, shapes):
+    # shapes None: rows of values; else (x0, y1) of the first shape and
+    # (x1, y0) of the second, broadcast together
+    if shapes is None:
+        (x0, x1), (y0, y1) = _ext_pair(20), _ext_pair(21)
+    else:
+        sa, sb = shapes
+        x0, x1, y0, y1 = (_shaped(sa, 11), _shaped(sb, 12),
+                          _shaped(sb, 13), _shaped(sa, 14))
     port, ref = EXT_BINARY[op]
     got = port((_t(x0), _t(x1)), (_t(y0), _t(y1)))
     want = ref((_limbs(x0), _limbs(x1)), (_limbs(y0), _limbs(y1)))
     for g, w in zip(got, want):
-        assert np.array_equal(gl.to_u64(g), G.to_u64(w))
+        assert np.array_equal(_u(g), np.broadcast_to(G.to_u64(w), g.shape))
 
 
 def test_ext_inv_pow_match_scalar_ops():
@@ -147,6 +190,14 @@ def test_ext_inv_pow_match_scalar_ops():
             assert got_inv == jext.e_inv(xi)
         assert (int(gl.to_u64(pw[0])[i]), int(gl.to_u64(pw[1])[i])) == \
             jext.e_pow(xi, 1000003)
+    # the inverse of pairs whose halves broadcast together
+    for sa, sb in BROADCAST:
+        x0, x1 = _shaped(sa, 11), _shaped(sb, 12)
+        got = E.inv((_t(x0), _t(x1)))
+        want = EXT.inv((_limbs(x0), _limbs(x1)))
+        for g, w in zip(got, want):
+            assert np.array_equal(_u(g),
+                                  np.broadcast_to(G.to_u64(w), g.shape))
 
 
 def test_ext_mul_matches_e_mul_and_powers():

@@ -163,3 +163,41 @@ def test_sharded_wire_commit_matches_reference():
         expect = host_reference_caps(wires[b], rate_bits, 4)
         for s in range(4):
             assert tuple(int(x) for x in got[b, s]) == expect[s], (b, s)
+
+
+def test_dropped_sharded_key_is_freed_without_the_cycle_collector():
+    """A ShardedProvingKey's shards hold it weakly: with the cycle collector
+    off, dropping the key frees it (and its device tensors) at once, and its
+    proof over 2 shards keeps the single-device prover's bytes."""
+    import gc
+    import weakref
+
+    from tpu_acir_prover_torch.acir.translator import translate_program
+    from tpu_acir_prover_torch.circuit.compile import compile_circuit
+    from tpu_acir_prover_torch.parallel.prove import (ShardedProvingKey,
+                                                      prove_sharded)
+    from tpu_acir_prover_torch.prover.config import TEST_CONFIG
+    from tpu_acir_prover_torch.prover.prove import ProvingKey, prove
+    from tpu_acir_prover_torch.prover.serialization import serialize_proof
+    from tpu_acir_prover_torch.utils import circuits
+
+    prog, wm = circuits.fibonacci()
+    tr = translate_program(prog)
+    cc = compile_circuit(tr.builder)
+    ext = tr.external_values(wm)
+    want = serialize_proof(prove(ProvingKey(cc, TEST_CONFIG, device="cpu"),
+                                 ext))
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        spk = ShardedProvingKey(cc, TEST_CONFIG, mesh=Mesh.on("cpu", 2))
+        assert serialize_proof(prove_sharded(spk, ext)) == want
+        shard = spk.shards[1]
+        ref = weakref.ref(spk)
+        del spk
+        assert ref() is None
+        with pytest.raises(ReferenceError):
+            shard.n
+    finally:
+        if enabled:
+            gc.enable()

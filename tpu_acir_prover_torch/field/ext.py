@@ -2,16 +2,19 @@
 
 Counterpart of ``make_ext`` in ``tpu_acir_prover/field/ext.py``; the host
 scalar ops ``e_add`` .. ``e_pow`` on python-int pairs are copies of that
-module's.
+module's.  ``mul`` and ``inv`` go through ``kernels/field.py``: CUDA
+tensors to ``ext_mul_kernel`` / ``ext_inv_kernel``, CPU tensors to their
+plain twins in ``field/ext_plain.py``; the other ops are built on those
+and on ``field/gl.py``'s.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..kernels import field as _kf
 from . import gl
-
-W = 7  # u^2 = 7
+from .ext_plain import W  # noqa: F401
 
 
 def const(v, like: torch.Tensor):
@@ -36,10 +39,8 @@ def neg(x):
 
 
 def mul(x, y):
-    # (a0 + a1 u)(b0 + b1 u) = a0 b0 + 7 a1 b1 + (a0 b1 + a1 b0) u
-    c0 = gl.add(gl.mul(x[0], y[0]), gl.mul_const(gl.mul(x[1], y[1]), W))
-    c1 = gl.add(gl.mul(x[0], y[1]), gl.mul(x[1], y[0]))
-    return (c0, c1)
+    """(a0 + a1 u)(b0 + b1 u) = a0 b0 + 7 a1 b1 + (a0 b1 + a1 b0) u."""
+    return _kf.ext_mul(x, y)
 
 
 def mul_base(x, b):
@@ -51,10 +52,8 @@ def sqr(x):
 
 
 def inv(x):
-    # 1/(a0 + a1 u) = (a0 - a1 u) / (a0^2 - 7 a1^2)
-    d = gl.sub(gl.sqr(x[0]), gl.mul_const(gl.sqr(x[1]), W))
-    di = gl.inv(d)
-    return (gl.mul(x[0], di), gl.neg(gl.mul(x[1], di)))
+    """1/(a0 + a1 u) = (a0 - a1 u) / (a0^2 - 7 a1^2); inv(0) = 0."""
+    return _kf.ext_inv(x)
 
 
 def pow_const(x, e: int):

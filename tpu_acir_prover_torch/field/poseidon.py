@@ -6,7 +6,8 @@ diagonal) and the python-int permutation used by the host challenger and
 verifier are copies of that module's.  The torch functions are the plain
 twins of the CUDA kernels in ``kernels/poseidon.py``: the kernel wrappers
 call them for CPU tensors, and the tests and ``chip_smoke.py`` hold the
-kernels to them.
+kernels to them.  Their field arithmetic is ``field/gl_plain.py``'s, so
+they are plain torch ops on the card too.
 
 States are ``(..., 12)`` int64 tensors and digests ``(..., 4)``: the lane
 axis is last, the row-major layout of the LDE matrices.
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from . import gl
+from .gl_plain import add, mul
 
 WIDTH = 12
 RATE = 8
@@ -106,39 +108,42 @@ def _constants(device: torch.device):
 
 
 def _sbox(x):
-    x2 = gl.mul(x, x)
-    x3 = gl.mul(x2, x)
-    x6 = gl.mul(x3, x3)
-    return gl.mul(x6, x)
+    x2 = mul(x, x)
+    x3 = mul(x2, x)
+    x6 = mul(x3, x3)
+    return mul(x6, x)
 
 
 def _m4(x):
     """M4 = [[5,7,1,3],[4,6,1,1],[1,3,5,7],[1,1,4,6]] on the last axis by
     the Poseidon2 paper's add chain."""
     x0, x1, x2, x3 = x.unbind(-1)
-    t0 = gl.add(x0, x1)
-    t1 = gl.add(x2, x3)
-    t2 = gl.add(gl.add(x1, x1), t1)
-    t3 = gl.add(gl.add(x3, x3), t0)
-    d1 = gl.add(t1, t1)
-    t4 = gl.add(gl.add(d1, d1), t3)
-    d0 = gl.add(t0, t0)
-    t5 = gl.add(gl.add(d0, d0), t2)
-    t6 = gl.add(t3, t5)
-    t7 = gl.add(t2, t4)
+    t0 = add(x0, x1)
+    t1 = add(x2, x3)
+    t2 = add(add(x1, x1), t1)
+    t3 = add(add(x3, x3), t0)
+    d1 = add(t1, t1)
+    t4 = add(add(d1, d1), t3)
+    d0 = add(t0, t0)
+    t5 = add(add(d0, d0), t2)
+    t6 = add(t3, t5)
+    t7 = add(t2, t4)
     return torch.stack([t6, t5, t7, t4], dim=-1)
 
 
 def _external_matrix(s):
     """M_E = circ(2*M4, M4, M4)."""
     v = _m4(s.reshape(s.shape[:-1] + (3, 4)))
-    tot = gl.add(gl.add(v[..., 0, :], v[..., 1, :]), v[..., 2, :])
-    return gl.add(v, tot.unsqueeze(-2)).reshape(s.shape)
+    tot = add(add(v[..., 0, :], v[..., 1, :]), v[..., 2, :])
+    return add(v, tot.unsqueeze(-2)).reshape(s.shape)
 
 
 def _internal_matrix(s, dm1):
     """out_i = sum_j x_j + (mu_i - 1) * x_i."""
-    return gl.add(gl.mul(s, dm1), gl.sum_axis(s, -1).unsqueeze(-1))
+    tot = s[..., 0]
+    for j in range(1, WIDTH):
+        tot = add(tot, s[..., j])
+    return add(mul(s, dm1), tot.unsqueeze(-1))
 
 
 def permute(state: torch.Tensor) -> torch.Tensor:
@@ -147,12 +152,12 @@ def permute(state: torch.Tensor) -> torch.Tensor:
     half = EXTERNAL_ROUNDS // 2
     s = _external_matrix(state)
     for r in range(half):
-        s = _external_matrix(_sbox(gl.add(s, ext_rc[r])))
+        s = _external_matrix(_sbox(add(s, ext_rc[r])))
     for r in range(INTERNAL_ROUNDS):
-        l0 = _sbox(gl.add(s[..., :1], int_rc[r]))
+        l0 = _sbox(add(s[..., :1], int_rc[r]))
         s = _internal_matrix(torch.cat([l0, s[..., 1:]], dim=-1), dm1)
     for r in range(half, EXTERNAL_ROUNDS):
-        s = _external_matrix(_sbox(gl.add(s, ext_rc[r])))
+        s = _external_matrix(_sbox(add(s, ext_rc[r])))
     return s
 
 

@@ -20,17 +20,14 @@ raises: there is no fallback.  ``launches`` counts kernel launches per
 wrapper.
 
 The library is built with ``nvcc`` at first use into ``_build/``, keyed by
-a hash of the sources and flags, and loaded with ctypes; ptxas's register
-and spill report is kept beside it (``ptxas_report``).
+a hash of the sources, the shared header ``csrc/goldilocks.cuh`` and the
+flags (``kernels/nvcc.py``), and loaded with ctypes; ptxas's register and
+spill report is kept beside it (``ptxas_report``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -39,12 +36,9 @@ import torch
 from ..field import poseidon as plain
 from ..field.poseidon import (DIAG_M1, DIGEST, INTERNAL_CONSTANTS, RATE,
                               ROUND_CONSTANTS, WIDTH)
+from . import nvcc
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "poseidon2.cu",)
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = (nvcc.CSRC / "poseidon2.cu",)
 # Merkle levels: a launch hashes up to LEVELS_PER_LAUNCH levels with one
 # thread per permutation; from a child level of at most NARROW_CHILDREN
 # digests up, it hashes up to NARROW_LEVELS levels with four threads per
@@ -66,45 +60,15 @@ def reset_launches():
         launches[k] = 0
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    cand = os.path.join(home, "bin", "nvcc") if home else None
-    if cand and os.path.exists(cand):
-        return cand
-    found = shutil.which("nvcc") or (
-        "/usr/local/cuda/bin/nvcc"
-        if os.path.exists("/usr/local/cuda/bin/nvcc") else None)
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    return found
-
-
 def build() -> Path:
     """Compile the kernels (if not already built) and return the library."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        h.update(src.read_bytes())
-    so = BUILD_DIR / f"libposeidon2_{h.hexdigest()[:16]}.so"
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    tmp.with_suffix(".log").write_text(res.stdout + res.stderr)
-    os.replace(tmp.with_suffix(".log"), so.with_suffix(".log"))
-    os.replace(tmp, so)
-    return so
+    return nvcc.build("poseidon2", SOURCES)
 
 
 def ptxas_report() -> list:
     """ptxas's lines on each kernel's registers, spills and shared memory,
     from the build of the library."""
-    lines = build().with_suffix(".log").read_text().splitlines()
-    return [ln.split(":", 1)[-1].strip() for ln in lines
-            if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
+    return nvcc.ptxas_report(build())
 
 
 def _load():

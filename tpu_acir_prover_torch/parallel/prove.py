@@ -30,6 +30,8 @@ offsets, partial sums, four-step vs radix-2 NTT) gives the same values.
 
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 
@@ -113,7 +115,8 @@ class _Shard:
     """Shard s of a ShardedProvingKey as the phase bodies see a key: its
     row blocks of the domain tables (``ProvingKey.domain_tables``) and of
     the wire indices, and its copies of the small replicated tensors, on its
-    device; every other attribute reads through to the key."""
+    device; every other attribute reads through to the key, which it holds
+    weakly."""
 
     _dev = ProvingKey._dev
     _ext = ProvingKey._ext
@@ -121,7 +124,10 @@ class _Shard:
     fri_combine = ProvingKey.fri_combine
 
     def __init__(self, key, s: int):
-        self._key = key
+        # a weak proxy: the key holds its shards, and a strong reference
+        # back would keep a dropped key's device tensors until Python's
+        # cycle collector runs
+        self._key = weakref.proxy(key)
         self.device = key.mesh.devices[s]
         for name in key.domain_tables + ("wire_idx",):
             setattr(self, name, getattr(key, name)[s])

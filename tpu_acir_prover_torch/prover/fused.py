@@ -32,6 +32,7 @@ from ..field import ext as E
 from ..field import gl
 from ..field.gl import MULTIPLICATIVE_GENERATOR, P
 from ..field.poseidon import RATE, WIDTH
+from ..kernels import field as kf
 from ..kernels import poseidon as kp
 from ..utils.timing import PhaseTimer
 from .merkle import gather_paths
@@ -189,6 +190,12 @@ def _unflatten(flat_u64: np.ndarray, layout):
     return tree_unflatten(leaves, spec)
 
 
+def all_launches() -> dict:
+    """Every kernel wrapper's launch count: the Poseidon2 kernels' and the
+    field kernels'."""
+    return {**kp.launches, **kf.launches}
+
+
 class CapturedProof:
     """The fused prover of one proving key as a CUDA graph, with its static
     input buffers and pinned host staging; built at first use and cached on
@@ -214,7 +221,7 @@ class CapturedProof:
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        before = dict(kp.launches)
+        before = all_launches()
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.perf_counter()
         with torch.cuda.graph(self.graph):
@@ -225,7 +232,8 @@ class CapturedProof:
         torch.cuda.synchronize(dev)
         self.instantiate_s = time.perf_counter() - t0
         # the kernel launches the graph holds, by wrapper: one replay's
-        self.launches = {k: v - before[k] for k, v in kp.launches.items()}
+        self.launches = {k: v - before[k]
+                         for k, v in all_launches().items()}
         # device memory the graph's pool keeps between replays
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.out = torch.empty(self.flat.shape, dtype=torch.int64,
