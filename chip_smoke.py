@@ -23,7 +23,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    turns, two each, with their upper medians, bytes and peak memory; the
    synchronising calls of each; one replay under ``torch.profiler``: its
    device operations, device time, the device's idle share and each
-   Poseidon2 and field kernel's count and device time;
+   Poseidon2 and field kernel's count and device time (the field kernels'
+   also by path); the replay's ext_mul + ext_prod launches, fewer than the
+   528 ext_mul launches of a replay before ext_prod;
 6. profile: one warm per-phase proof under ``torch.profiler``, the device
    time of all kernels, of the Poseidon2 kernels and of the field kernels;
 7. sharded: ``prove_sharded`` with every shard on cuda:0.  Parity: over 2
@@ -34,7 +36,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    [fused].  The 2^20-row ``mul_chain`` circuit (standard config, LDE 2^23
    rows): one per-phase proof on a plain key, then ``prove_fused`` on the
    same key (its eager run, the graph's capture and instantiation, then a
-   warm proof: times, pool, peak memory and the graph's kernel launches),
+   warm proof: times, pool, peak memory and the graph's kernel launches,
+   and one replay under ``torch.profiler`` as in [fused]),
    then over 4 shards (2 if 4 run out of memory, with the error printed),
    bytes equal, all verified; the key build's and the per-phase proof's
    peaks beside those before the commit ran its NTTs in column blocks.
@@ -64,17 +67,25 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    [sharded] do;
 10. field: each field kernel (``csrc/field.cu``: ``gl_binary_kernel`` for
     add, sub and mul, ``gl_pow_kernel``, ``ext_mul_kernel``,
-    ``ext_inv_kernel``) against its plain torch twin on the card, bit for
-    bit, at the main path's shapes: a (2^20, 43) matrix times a (2^20, 1)
-    column, the NTT's strided radix-4 views at 2^23 rows against (1, h, 1)
-    twiddles, a quotient chunk's (2^18,) inverses, round 2's (2^17,) ext
-    columns and (2^17, 16) ext inverses; then at every layout (sizes and
-    strides after the wrapper's merging) that the paths above gave a field
-    kernel, recorded as they ran: each held bit for bit, the largest of
-    each class (kernel, op, rank, broadcast dimensions) also timed; with
-    both times, the card's bound (bytes, or the products times the SASS
-    instructions of one product) and the kernel's launches in the main
-    path's run;
+    ``ext_prod_kernel``, ``ext_inv_kernel``) against its plain torch twin on
+    the card, bit for bit, at the main path's shapes: a (2^20, 43) matrix
+    times a (2^20, 1) column, the NTT's strided radix-4 views at 2^23 rows
+    against (1, h, 1) twiddles, a quotient chunk's (2^18,) inverses, round
+    2's (2^17,) ext columns, its group products over (2^17, 16) ext pairs
+    and (2^17, 16) ext inverses; then at every layout (sizes and strides
+    after the wrapper's merging; ext_prod's columns) that the paths above
+    gave a field kernel, recorded as they ran: each held bit for bit, the
+    largest of each class (kernel, op, path in the kernel, rank, broadcast
+    dimensions) also timed; with the kernel's device time (a CUDA graph of
+    launches, each after a read of 256 MiB that evicts the L2 cache,
+    replayed under ``torch.profiler``), the twin's, the card's bound
+    (bytes, or the products times the SASS instructions of one product)
+    and the kernel's launches in the main path's run.  Also: the path each class takes and
+    the launches of each path of the kernels per prover path, the general
+    path's among them; the wrappers' host time per call; and, for the fused
+    ECDSA and 2^20 ``mul_chain`` replays, each field kernel's launches,
+    device time, the sum of its launches' bounds from the layouts the
+    capture recorded, and the share of that bound;
 11. kernels: each kernel against its plain torch twin on the card, bit
     for bit, with both times and the card's bound for the same work: at
     the main path's shapes (the grind from the ECDSA proof's own state;
@@ -170,13 +181,14 @@ BYTES_PER_S = 3.35e12
 # and its profiler name, and the reference op of each case
 FIELD_SOURCE = "tpu_acir_prover_torch/csrc/field.cu"
 FIELD_KERNELS = ("gl_binary_kernel", "gl_pow_kernel", "ext_mul_kernel",
-                 "ext_inv_kernel")
+                 "ext_prod_kernel", "ext_inv_kernel")
 JGL = "tpu_acir_prover/field/gl.py"
 JEXT = "tpu_acir_prover/field/ext.py"
 FIELD_REPLACES = {"add": f"{JGL}:98", "sub": f"{JGL}:125",
                   "mul": f"{JGL}:211", "pow": f"{JGL}:221",
                   "inv": f"{JGL}:239",
-                  "ext_mul": f"{JEXT}:37", "ext_inv": f"{JEXT}:53"}
+                  "ext_mul": f"{JEXT}:37", "ext_inv": f"{JEXT}:53",
+                  "ext_prod": f"{JEXT}:37"}
 FIELD_ROWS = 1 << 20                # the ECDSA circuit's LDE rows
 FIELD_NTT_ROWS = 1 << 23            # mul_chain 2^20's LDE rows
 FIELD_NTT_COLS = 8                  # a column block of 2^26 LDE elements
@@ -185,6 +197,11 @@ FIELD_TRACE_ROWS = 1 << 17          # the ECDSA trace: round 2's rows
 FIELD_CHUNK = 1 << 18               # a quotient chunk (QUOTIENT_CHUNK)
 FIELD_WIRES = 16                    # the ECDSA circuit's wire columns
 FIELD_OPS = ("add", "sub", "mul")   # gl_binary_kernel's op codes
+FIELD_PATHS = ("flat", "rows", "tiled", "general")   # csrc/field.cu's Path
+# a fused ECDSA replay's ext_mul launches before ext_prod took the column
+# folds (NVIDIA H100 80GB HBM3, 700 W)
+EXT_MUL_REPLAY_BEFORE = 528
+GENERAL_LARGE = 1 << 16             # elements: general unexpected above rank 1
 # The Goldilocks products of one inverse: gl_inv's addition chain for
 # p - 2 in csrc/field.cu, 64 squarings and 9 multiplies
 INV_PRODUCTS = 64 + 9
@@ -519,8 +536,9 @@ def _read_bytes(t):
 
 def _sass_per_product():
     """(IMAD-class, all) SASS instructions of one Goldilocks product in the
-    field library: gl_binary_kernel<MUL> less gl_binary_kernel<ADD> (the
-    same kernel but for the op), by the toolkit's ``cuobjdump -sass``."""
+    field library: gl_binary_kernel<MUL, GENERAL> less gl_binary_kernel<ADD,
+    GENERAL> (the same kernel, one element a thread, but for the op), by
+    the toolkit's ``cuobjdump -sass``."""
     import re
     from pathlib import Path
 
@@ -539,7 +557,9 @@ def _sass_per_product():
             counts[cur][0] += "IMAD" in line
 
     def of(op):
-        names = [k for k in counts if f"gl_binary_kernelILi{op}EE" in k]
+        general = FIELD_PATHS.index("general")
+        names = [k for k in counts
+                 if f"gl_binary_kernelILi{op}ELi{general}EE" in k]
         if len(names) != 1:
             raise AssertionError(f"gl_binary_kernel<{op}> in the SASS: "
                                  f"{names}")
@@ -550,23 +570,27 @@ def _sass_per_product():
 
 
 @contextlib.contextmanager
-def field_layouts(seen):
+def field_layouts(seen, captured, kernel_path):
     """While open, counts in ``seen[layout][path]`` the field kernels'
-    launches by the layout the wrapper gave the kernel: (kernel, op or
-    exponent, sizes, strides per operand), after its merging of
-    dimensions; ``path`` is the name last given to the function this
-    yields.  The wrappers run unchanged and count their own launches."""
+    launches by the layout the wrapper gave the kernel: (kernel, op,
+    exponent or ext_prod's columns, sizes, strides per operand), after its
+    merging of dimensions; ``path`` is the name last given to the function
+    this yields.  Launches while a CUDA graph is being captured also count
+    in ``captured[path][layout]``; ``kernel_path[layout]`` is the path the
+    kernel takes.  The wrappers run unchanged and count their own
+    launches."""
     from tpu_acir_prover_torch.kernels import field as kf
     launch, path = kf._launch, ["-"]
 
-    def spy(what, fn, dev, *args):
-        n, rank, sizes, strides = args[-4:]
+    def spy(what, fn, dev, plan, *args):
         arg = FIELD_OPS[args[0]] if what == "gl_binary" else \
-            args[1] if what == "gl_pow" else None
-        per = tuple(tuple(strides[k * rank:(k + 1) * rank])
-                    for k in range(len(strides) // rank))
-        seen[(what, arg, tuple(sizes), per)][path[0]] += 1
-        return launch(what, fn, dev, *args)
+            args[1] if what == "gl_pow" else plan.cols or None
+        key = (what, arg, tuple(plan.sizes), tuple(map(tuple, plan.strides)))
+        seen[key][path[0]] += 1
+        kernel_path[key] = plan.path
+        if torch.cuda.is_current_stream_capturing():
+            captured[path[0]][key] += 1
+        return launch(what, fn, dev, plan, *args)
 
     def on(name):
         path[0] = name
@@ -597,27 +621,33 @@ def _field_calls(what, arg):
     if what == "ext_mul":
         return ("ext_mul", lambda x: list(kf.ext_mul(x[:2], x[2:])),
                 lambda x: list(ext_plain.mul(x[:2], x[2:])), 4)
+    if what == "ext_prod":
+        return ("ext_prod", lambda x: list(kf.ext_prod(x, arg)),
+                lambda x: list(ext_plain.prod(x, arg)), 4 * (len(arg) - 1))
     return ("ext_inv", lambda x: list(kf.ext_inv(x)),
             lambda x: list(ext_plain.inv(x)), INV_PRODUCTS + 4)
 
 
-def _hold_field(x, kern, twin, what, reps):
+def _hold_field(x, kern, twin, what, kernel=None):
     """The kernel's outputs on operands ``x`` against the twin's, bit for
-    bit; (max_abs_err, n, outputs, kernel ms, twin ms), the times None for
-    reps = 0."""
-    from tpu_acir_prover_torch.kernels.bench import cuda_ms
+    bit; (max_abs_err, n, outputs, kernel ms, twin ms, method): with
+    ``kernel`` (its profiler name) the kernel's device time by
+    ``kernels/field_bench``'s ``device_ms``, the method that measured it,
+    and the twin's time by CUDA events around one call, else None for the
+    three."""
+    from tpu_acir_prover_torch.kernels.field_bench import device_ms
     got = kern(x)
-    if reps:
+    if kernel:
         want, plain_ms = _once_ms(lambda: twin(x))
-        ms = cuda_ms(lambda: kern(x), reps)
+        ms, method = device_ms(lambda: kern(x), (kernel,))
     else:
-        want, plain_ms, ms = twin(x), None, None
+        want, plain_ms, ms, method = twin(x), None, None, None
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
     if err != 0 or not all(torch.equal(a, b) for a, b in zip(got, want)):
         raise AssertionError(f"{what}: kernel differs from the plain twin "
                              f"(max abs err {err})")
-    return err, got[0].numel(), len(got), ms, plain_ms
+    return err, got[0].numel(), len(got), ms, plain_ms, method
 
 
 def _field_bound(x, n, outputs, products, per_product):
@@ -633,20 +663,81 @@ def _field_bound(x, n, outputs, products, per_product):
     return bytes_ms, "bytes", nbytes
 
 
-def phase_field(main_launches, seen):
+def _layout_bound(key, per_product):
+    """(bound_ms, bound_by, bytes, products) of one launch at a recorded
+    layout ``key``, as ``_field_bound`` counts it: each operand's distinct
+    elements read once (ext_prod: the listed columns of each half), the
+    outputs written once, or the products."""
+    what, arg, sizes, strides = key
+    n = math.prod(sizes)
+    if what == "ext_prod":
+        rows, cols = sizes[0], len(arg)
+        nbytes = sum(8 * (rows * cols if any(st) else 1) for st in strides)
+        nbytes += 2 * 8 * rows
+        products = rows * 4 * (cols - 1)
+    else:
+        nbytes = sum(8 * math.prod(z for z, x in zip(sizes, st) if x)
+                     for st in strides)
+        nbytes += 8 * n * (2 if what in ("ext_mul", "ext_inv") else 1)
+        products = n * _field_calls(what, arg)[3]
+    ops_ms = products * per_product / MADDS_PER_S * 1e3
+    bytes_ms = nbytes / BYTES_PER_S * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations", nbytes, products
+    return bytes_ms, "bytes", nbytes, products
+
+
+def _replay_shares(name, replay, layouts, per_product):
+    """Each field kernel's launches and device time in a profiled replay
+    beside the sum of its launches' bounds, from the layouts the graph's
+    capture recorded."""
+    if replay is None:
+        say(f"[field] {name}: the replay was not profiled (no device "
+            "activity recorded): shares not measured")
+        return {}
+    bounds = collections.defaultdict(lambda: [0, 0.0])
+    for key, count in layouts.items():
+        bounds[key[0]][0] += count
+        bounds[key[0]][1] += count * _layout_bound(key, per_product)[0]
+    out = {}
+    for what in ("gl_binary", "gl_pow", "ext_mul", "ext_prod", "ext_inv"):
+        n, us = replay["kernels"].get(f"{what}_kernel", (0, 0.0))
+        captured, bound_ms = bounds[what]
+        ms = us / 1e3
+        out[what] = {"launches": n, "captured": captured, "device_ms": ms,
+                     "bound_ms": bound_ms,
+                     "share": bound_ms / ms if ms else None}
+        say(f"[field] {name}: {what}_kernel {n} launches ({captured} in the "
+            f"capture's layouts), {ms:.4f} ms of device time, sum of the "
+            f"launches' bounds {bound_ms:.4f} ms"
+            + (f", {bound_ms / ms:.1%} of bound" if ms else ""))
+    for k, (n, us) in sorted(replay["paths"].items()):
+        say(f"[field] {name}: {k} {n} launches, {us / 1e3:.4f} ms")
+    return out
+
+
+def phase_field(main_launches, seen, kernel_path, captured, replays):
     """Each field kernel against its plain twin on the card, bit for bit,
     at the main path's shapes, then at every layout the paths gave it
-    (``seen``, from ``field_layouts``), with its time, the twin's and the
-    card's bound; returns one record per kernel and timed shape."""
+    (``seen``, ``kernel_path``, from ``field_layouts``), with its device
+    time, the twin's and the card's bound; the paths the kernels took; the
+    wrappers' host time; each field kernel's share of its bound in the
+    profiled fused replays (``replays``: name -> (profile, prover path of
+    its capture)).  Returns one record per kernel and timed shape."""
     from tpu_acir_prover_torch.field import gl_plain
     from tpu_acir_prover_torch.kernels import field as kf
     from tpu_acir_prover_torch.kernels.bench import field_input
+    from tpu_acir_prover_torch.kernels.field_bench import host_us
     rng = np.random.default_rng(2025)
     dev = torch.device("cuda")
     per_product, instructions = _sass_per_product()
     say(f"[field] one Goldilocks product in field.cu: {per_product} "
         f"IMAD-class of {instructions} SASS instructions (cuobjdump); an "
         f"inverse is {INV_PRODUCTS} products (gl_inv's addition chain)")
+    host = host_us(rng, dev)
+    say("[field] wrapper host time per call (calls back to back, no "
+        "synchronisation): " + ", ".join(
+            f"{k} {v:.2f} us" for k, v in host.items()))
 
     def col(n, c):
         return field_input(rng, (n, c), dev)
@@ -666,6 +757,10 @@ def phase_field(main_launches, seen):
         n, w = FIELD_TRACE_ROWS, FIELD_WIRES
         return (col(n, w), field_input(rng, (), dev).expand(n, w))
 
+    def perm_factors():
+        n, w = FIELD_TRACE_ROWS, FIELD_WIRES
+        return (col(n, w), col(n, w))
+
     ntt = {}
 
     def ntt_mul():
@@ -673,7 +768,7 @@ def phase_field(main_launches, seen):
         ntt["a"], ntt["t"] = a, kf.mul(b, tw)
         return (b, tw)
 
-    # (kernel, op or exponent, shape, make the operands)
+    # (kernel, op, exponent or columns, shape, make the operands)
     cases = [
         ("gl_binary", "mul", "(2^20, 43) x (2^20, 1): a column of "
          "coset-shift powers", lambda: (col(FIELD_ROWS, 43),
@@ -689,22 +784,31 @@ def phase_field(main_launches, seen):
          "denominators, e = p - 2",
          lambda: (col(FIELD_CHUNK, 1).reshape(-1),)),
         ("ext_mul", None, "(2^17,) ext columns of (2^17, 16) pairs "
-         "(stride 16): round 2's group products", ext_cols),
+         "(stride 16): round 2's chained products", ext_cols),
+        ("ext_prod", tuple(range(6)), "(2^17, 16) ext pair, columns 0-5: "
+         "round 2's permutation group product", perm_factors),
+        ("ext_prod", (0, 1, 2), "(2^17, 16) ext pair, lam1 broadcast, "
+         "columns 0-2: a lookup group's product without one column",
+         lookup_factors),
         ("ext_inv", None, "(2^17, 16): round 2's lookup factors (lam0 - w, "
          "lam1 broadcast)", lookup_factors),
     ]
     records = []
 
-    def record(name, op, shape, x, kern, twin, products, path, extra):
+    def record(name, op, shape, x, kern, twin, products, path, extra,
+               bound=None):
         what = f"{name} ({op}) {shape}"
-        err, n, outs, ms, plain_ms = _hold_field(x, kern, twin, what, 10)
+        err, n, outs, ms, plain_ms, method = _hold_field(
+            x, kern, twin, what, f"{name}_kernel")
         bound_ms, bound_by, nbytes = _field_bound(x, n, outs, products,
                                                   per_product)
+        if bound:       # ext_prod: the listed columns, not whole halves
+            bound_ms, bound_by, nbytes = bound[:3]
         say(f"[field] {what}: bit-identical to the plain twin; kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}: {nbytes} bytes, {n * products} products), "
-            f"{bound_ms / ms:.1%} of bound; main path: "
-            f"{main_launches[name]} launches")
+            f"{ms:.4f} ms (device), plain {plain_ms:.2f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound; "
+            f"main path: {main_launches[name]} launches; timed by "
+            f"{method}")
         records.append({
             "name": name, "route": "cuda", "source": FIELD_SOURCE,
             "replaces": FIELD_REPLACES[op], "launches": main_launches[name],
@@ -714,18 +818,31 @@ def phase_field(main_launches, seen):
             "launches_in": "the CLI's run (one eager proof, then the graph's "
             "capture)", "bound_kind": "throughput", "bytes": nbytes,
             "products": n * products, "sass_per_product": per_product,
+            "ms_method": f"{method} (kernels/field_bench.device_ms)",
             **extra})
 
     for name, arg, shape, make in cases:
         op, kern, twin, products = _field_calls(name, arg)
-        record(name, op, shape, list(make()), kern, twin, products,
-               "main: the CLI's ECDSA prove", {})
+        x = list(make())
+        extra, bound = {}, None
+        if name == "ext_prod":
+            key = (name, arg, tuple(x[0].shape),
+                   (tuple(x[0].stride()), tuple(x[1].stride())))
+            bound = _layout_bound(key, per_product)
+            extra = {"columns": list(arg)}
+            x = tuple(x)
+        elif name in ("gl_binary", "ext_mul"):
+            _, sizes, strides = kf.layout(*x)
+            extra = {"kernel_path": kf.PATHS[kf.plan(
+                sizes, strides, name == "gl_binary")[0]]}
+        record(name, op, shape, x, kern, twin, products,
+               "main: the CLI's ECDSA prove", extra, bound)
     ntt.clear()
 
     # every recorded layout, its operands read through it from one pool of
     # values, each operand from a region of its own (so that no operand's
-    # reads hit another's in the cache); a class is (kernel, op, rank,
-    # broadcast dimensions of each operand)
+    # reads hit another's in the cache); a class is (kernel, op, path in the
+    # kernel, rank, broadcast dimensions of each operand)
     if not seen:
         raise AssertionError("the paths recorded no field kernel launch")
     span = max(1 + sum((s - 1) * x for s, x in zip(sizes, st))
@@ -735,41 +852,78 @@ def phase_field(main_launches, seen):
     for key in seen:
         what, arg, sizes, strides = key
         zero = tuple(tuple(x == 0 for x in st) for st in strides)
-        classes[(what, arg, len(sizes), zero)].append(key)
+        kpath = kernel_path[key]
+        classes[(what, str(arg) if what == "ext_prod" else arg, kpath,
+                 len(sizes), zero)].append(key)
     t0 = time.perf_counter()
     for cls, keys in sorted(classes.items(), key=lambda kv: str(kv[0])):
         keys.sort(key=lambda k: math.prod(k[2]))
-        what, arg = cls[:2]
-        op, kern, twin, products = _field_calls(what, arg)
+        what, _, kpath = cls[:3]
 
         def operands(key):
             x = [torch.as_strided(pool, key[2], st, k * span)
                  for k, st in enumerate(key[3])]
+            if what == "ext_prod":
+                return tuple(x)
             if kf.layout(*x)[1:] != (list(key[2]), [list(s) for s in key[3]]):
                 raise AssertionError(f"{key}: the operands' layout is "
                                      f"{kf.layout(*x)[1:]}")
             return x
 
         for key in keys[:-1]:
-            _hold_field(operands(key), kern, twin, f"{what} ({op}) {key[2:]}",
-                        0)
-        sizes, strides = keys[-1][2:]
-        x = operands(keys[-1])
+            op, kern, twin, _ = _field_calls(what, key[1])
+            _hold_field(operands(key), kern, twin, f"{what} ({op}) {key[2:]}")
+        key = keys[-1]
+        op, kern, twin, products = _field_calls(what, key[1])
+        sizes, strides = key[2:]
+        x = operands(key)
         calls = collections.Counter()
-        for key in keys:
-            calls.update(seen[key])
-        say(f"[field] {what} ({op}) rank {len(sizes)}: {len(keys)} "
-            f"recorded layouts bit-identical to the plain twin; calls by "
-            f"path {dict(calls)}")
+        for k in keys:
+            calls.update(seen[k])
+        say(f"[field] {what} ({op}) path {kpath} rank {len(sizes)}: "
+            f"{len(keys)} recorded layouts bit-identical to the plain twin; "
+            f"calls by path {dict(calls)}")
+        extra = {"layouts_in_class": len(keys),
+                 "calls_at_layout": dict(seen[key]),
+                 "calls_in_class": dict(calls), "kernel_path": kpath}
+        bound = None
+        if what == "ext_prod":
+            extra["columns"] = list(key[1])
+            bound = _layout_bound(key, per_product)
         record(what, op, f"recorded layout: sizes {list(sizes)}, strides "
                f"{[list(st) for st in strides]}", x, kern, twin, products,
-               ", ".join(sorted(seen[keys[-1]])),
-               {"layouts_in_class": len(keys),
-                "calls_at_layout": dict(seen[keys[-1]]),
-                "calls_in_class": dict(calls)})
+               ", ".join(sorted(seen[key])), extra, bound)
         del x
     say(f"[field] {len(seen)} recorded layouts in {len(classes)} classes "
         f"held in {time.perf_counter() - t0:.1f} s")
+    methods = collections.Counter(r["ms_method"] for r in records)
+    say(f"[field] device times of {len(records)} records by method: "
+        f"{dict(methods)}")
+
+    # the kernels' paths by prover path, and the general path's launches:
+    # at rank 1 (a strided column) by design, above rank 1 unexpected
+    by_path = collections.defaultdict(collections.Counter)
+    large_general = collections.defaultdict(collections.Counter)
+    for key, counts in seen.items():
+        kpath = kernel_path[key]
+        for prover, n in counts.items():
+            by_path[prover][f"{key[0]}/{kpath}"] += n
+            if kpath == "general" and key[0] in ("gl_binary", "ext_mul") \
+                    and math.prod(key[2]) >= GENERAL_LARGE:
+                rank = "rank 1" if len(key[2]) == 1 else "rank > 1"
+                large_general[prover][rank] += n
+    for prover, counts in by_path.items():
+        say(f"[field] kernel paths in {prover}: {dict(sorted(counts.items()))}"
+            f"; gl_binary and ext_mul launches on the general path at >= "
+            f"{GENERAL_LARGE} elements: strided rank-1 columns "
+            f"{large_general[prover]['rank 1']}, above rank 1 "
+            f"{large_general[prover]['rank > 1']}")
+
+    for name, (replay, prover) in replays.items():
+        shares = _replay_shares(name, replay, captured.get(prover, {}),
+                                per_product)
+        records_note = {"replay": name, **{k: v for k, v in shares.items()}}
+        say(f"[field] {name} shares: {json.dumps(records_note)}")
     return records
 
 
@@ -893,7 +1047,8 @@ def _median(xs):
 def phase_fused(pk, ext, data):
     """The captured graph of the CLI's proof, then warm fused and per-phase
     proofs in turns, their synchronising calls, and one profiled replay.
-    Returns the (state, lane) the per-phase proof's grind searched from."""
+    Returns the (state, lane) the per-phase proof's grind searched from,
+    the per-phase proofs' summary and the replay's profile."""
     from tpu_acir_prover_torch.prover.fused import prove_fused
     from tpu_acir_prover_torch.prover.prove import prove
     from tpu_acir_prover_torch.utils.syncs import count_syncs
@@ -907,13 +1062,20 @@ def phase_fused(pk, ext, data):
                if v == 0 and k not in OFF_PATH]
     if missing:
         raise AssertionError(f"the captured graph holds no {missing}")
+    ext_launches = cap.launches["ext_mul"] + cap.launches["ext_prod"]
+    say(f"[fused] ext_mul + ext_prod launches a replay: "
+        f"{cap.launches['ext_mul']} + {cap.launches['ext_prod']} = "
+        f"{ext_launches} (ext_mul alone before ext_prod: "
+        f"{EXT_MUL_REPLAY_BEFORE})")
+    if ext_launches >= EXT_MUL_REPLAY_BEFORE:
+        raise AssertionError("ext_prod did not take launches off the replay")
     per_phase, seen = _in_turns(pk, ext, data, "[fused]")
     _, n_fused = count_syncs(lambda: prove_fused(pk, ext))
     _, n_phase = count_syncs(lambda: prove(pk, ext))
     say(f"[fused] synchronising calls per proof (sync debug mode): fused "
         f"{n_fused}, per-phase {n_phase}")
-    profile_replay(pk, ext)
-    return seen[0], per_phase
+    replay = profile_replay(pk, ext)
+    return seen[0], per_phase, replay
 
 
 def _in_turns(pk, ext, data, phase):
@@ -980,13 +1142,16 @@ def _in_turns(pk, ext, data, phase):
     return per_phase, seen
 
 
-def profile_replay(pk, ext):
+def profile_replay(pk, ext, tag="[fused]"):
     """One replay of the captured graph under torch.profiler: its device
     operations and device time; the idle share is one minus the device
-    time over the unprofiled replay's wall time."""
-    from torch.autograd import DeviceType
+    time over the unprofiled replay's wall time.  Returns the Poseidon2 and
+    field kernels' {"kernels": {name: (count, us)}, "paths": {field kernel
+    and path: (count, us)}}, None where the profiler saw no device
+    activity."""
     from torch.profiler import ProfilerActivity, profile
 
+    from tpu_acir_prover_torch.kernels.field_bench import device_totals
     cc = pk.compiled
     vals = cc.generate_witness(ext)
     pub = np.array(cc.public_values(vals), dtype=np.uint64)
@@ -1002,56 +1167,43 @@ def profile_replay(pk, ext):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         cap.run(vals, pub, mcol)
         torch.cuda.synchronize()
-    total_us, total_n, ours = _device_totals(prof, DeviceType)
+    total_us, total_n, ours, paths = device_totals(
+        prof, POSEIDON_KERNELS + FIELD_KERNELS)
     if not total_n:
-        say("[fused] the profiler recorded no device activity: device time "
+        say(f"{tag} the profiler recorded no device activity: device time "
             "and idle share not measured")
-        return
+        return None
     wall = _median(walls)
     per = ", ".join(f"{k} {n} x = {t / 1e3:.4f} ms" for k, (n, t) in
                     ours.items())
-    say(f"[fused] one replay (inputs in, replay, outputs out): wall "
+    say(f"{tag} one replay (inputs in, replay, outputs out): wall "
         f"{wall * 1e3:.1f} ms (median of 3); under the profiler "
         f"{total_n} device operations, {total_us / 1e3:.1f} ms of device "
         f"time, idle share {1 - total_us / 1e6 / wall:.1%}; Poseidon2 and "
-        f"field kernels in the replay (count = device time): {per}; wrapper "
-        f"counts the capture recorded: {cap.launches}")
-
-
-def _device_totals(prof, DeviceType):
-    """(device us, device operations, {Poseidon2 or field kernel: [count,
-    us]})."""
-    total_us = total_n = 0
-    ours = {k: [0, 0.0] for k in POSEIDON_KERNELS + FIELD_KERNELS}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        total_us += us
-        total_n += e.count
-        for k in ours:
-            if k in e.key:
-                ours[k][0] += e.count
-                ours[k][1] += us
-    return total_us, total_n, ours
+        f"field kernels in the replay (count = device time): {per}; field "
+        f"kernels by path: " + ", ".join(
+            f"{k} {n} x = {t / 1e3:.4f} ms" for k, (n, t) in
+            sorted(paths.items())) +
+        f"; wrapper counts the capture recorded: {cap.launches}")
+    return {"kernels": {k: tuple(v) for k, v in ours.items()},
+            "paths": {k: tuple(v) for k, v in paths.items()}}
 
 
 def profile_proof(pk, ext):
     """One warm per-phase proof under torch.profiler (device activity
     only): the device time and count of all kernels and of the Poseidon2
     kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from tpu_acir_prover_torch.kernels.field_bench import device_totals
     from tpu_acir_prover_torch.prover.prove import prove
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         prove(pk, ext)
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    total_us, total_n, ours = _device_totals(prof, DeviceType)
+    total_us, total_n, ours, _ = device_totals(
+        prof, POSEIDON_KERNELS + FIELD_KERNELS)
     if not total_n:
         say("[profile] the profiler recorded no device activity: device time "
             "not measured")
@@ -1210,10 +1362,11 @@ def _fused_on_key(pk, ext, want, tag, phase):
         f"allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
         f"besides the pool; both proofs' bytes equal to the per-phase "
         f"proof's; verified")
+    replay = profile_replay(pk, ext, f"{phase} {ftag}:")
     pk._captured = None
     return {"path": ftag, "launches": cap.launches,
             "launches_in": "one replay (the capture's count)", "shapes": log,
-            "rows": pk.m}
+            "rows": pk.m, "replay": replay}
 
 
 def phase_sha256():
@@ -1552,16 +1705,20 @@ def phase_mul_chain():
 def main():
     smi = phase_device()
     phase_build()
-    # every field kernel launch of the paths below, by layout and path
+    # every field kernel launch of the paths below, by layout and path;
+    # those made while a graph was captured, by path and layout
     seen = collections.defaultdict(collections.Counter)
-    with field_layouts(seen) as on_path:
+    captured = collections.defaultdict(collections.Counter)
+    kernel_path = {}
+    with field_layouts(seen, captured, kernel_path) as on_path:
         on_path("parity")
         phase_parity()
         on_path("main")
         with tempfile.TemporaryDirectory() as work:
             launches, pk, ext, data = phase_main_path(work)
         on_path("fused")
-        (grind_state, grind_lane), per_phase = phase_fused(pk, ext, data)
+        (grind_state, grind_lane), per_phase, ecdsa_replay = phase_fused(
+            pk, ext, data)
         profile_proof(pk, ext)
         t0 = time.perf_counter()
         on_path("sharded")
@@ -1583,7 +1740,10 @@ def main():
         on_path("scaling")
         paths.append(phase_scaling())
     t0 = time.perf_counter()
-    records = phase_field(launches, seen)
+    chain = next(p for p in paths if "replay" in p)
+    replays = {"fused ECDSA replay": (ecdsa_replay, "main"),
+               f"{chain['path']} replay": (chain["replay"], "mul_chain")}
+    records = phase_field(launches, seen, kernel_path, captured, replays)
     say(f"[field] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     records += phase_kernels(grind_state, grind_lane, launches, paths)

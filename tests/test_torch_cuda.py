@@ -159,6 +159,109 @@ def test_field_kernel_matches_twin(cuda, op, layout):
         assert g.shape == w.shape and torch.equal(g, w), (op, layout)
 
 
+def _path_operands(name, dev):
+    """Operands of one path of the binary and ext_mul kernels (the binary
+    kernel's path in the name): aligned and 8 bytes off 16, tails,
+    broadcast rows, columns and scalars, transposed and rank-3 views."""
+    def make(shape, seed):
+        n = int(np.prod(shape))
+        return gl.from_u64(_field_values(n, seed, seed).reshape(shape),
+                           dev).reshape(shape)
+    a = make((1 << 16) + 7, 1)
+    m = make((300, 32), 2)
+    v = make((4096, 8), 3).reshape(-1, 2, 2, 64, 8)
+    return {
+        "flat": (a[:1 << 16], make(1 << 16, 4)),
+        "flat 8 bytes off 16": (a[1:(1 << 16) + 1], a[3:(1 << 16) + 3]),
+        "general column and scalar": (m[:, 5], make((), 5)),
+        "flat tail": (a[:1001], a[2:1003]),
+        "rows column": (make((1000, 43), 6), make((1000, 1), 7)),
+        "rows odd rows": (make((129, 45), 8)[:, 1:44], make((1, 43), 9)),
+        "rows ntt": (v[:, 0, 1], make((64,), 10).reshape(1, 64, 1)),
+        "rows rank 3": (make((4, 37, 300), 11), make((1, 37, 1), 12)),
+        "tiled": (m[:, :16].t(), m[:, 16:].t()),
+        "tiled ragged": (make((70, 1000), 13).t(), make((1000, 70), 14)),
+        "tiled rank 3": (make((3, 40, 50), 15).transpose(1, 2),
+                         make((3, 50, 40), 16)),
+        "tiled 4 rows": (make((5000, 4), 19).t(), make((4, 5000), 20)),
+        "general": (make((2, 3, 40, 5), 17).permute(0, 2, 1, 3),
+                    make((2, 1, 3, 1), 18)),
+    }[name]
+
+
+PATH_CASES = ["flat", "flat 8 bytes off 16", "general column and scalar",
+              "flat tail", "rows column", "rows odd rows", "rows ntt",
+              "rows rank 3", "tiled", "tiled ragged", "tiled rank 3",
+              "tiled 4 rows", "general"]
+
+
+def _path_of(tensors, tiled):
+    """The path of the field kernel that the wrapper plans for operands."""
+    _, sizes, strides = kf.layout(*tensors)
+    return kf.PATHS[kf.plan(sizes, strides, tiled)[0]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PATH_CASES)
+def test_field_kernel_paths_match_twin(cuda, name):
+    a, b = _path_operands(name, cuda)
+    path = name.split()[0]
+    assert _path_of((a, b), True) == path
+    for op in ("add", "sub", "mul"):
+        n0 = kf.launches["gl_binary"]
+        got = getattr(kf, op)(a, b)
+        assert kf.launches["gl_binary"] == n0 + 1, op
+        assert torch.equal(got, getattr(gl_plain, op)(a, b)), op
+    # ext_mul has no tiled path: rows reads those views
+    x, y = (a, b), (b, a)
+    assert _path_of(x + y, False) == ("rows" if path == "tiled" else path)
+    n0 = kf.launches["ext_mul"]
+    got = kf.ext_mul(x, y)
+    assert kf.launches["ext_mul"] == n0 + 1
+    for g, w in zip(got, ext_plain.mul(x, y)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 17, 5])
+def test_ext_prod_kernel_matches_twin(cuda, k):
+    rows = 3 * 128 + 5      # not a multiple of the 128-row block
+    re, im = (gl.from_u64(_rand_u64((rows, k), seed=k + s), cuda)
+              for s in (0, 1))
+    col_major = gl.from_u64(_rand_u64((k, rows), seed=k + 2), cuda).t()
+    scalar = gl.const(12345, re).expand(rows, k)
+    off = gl.from_u64(_rand_u64((rows * k + 1,), seed=k + 3), cuda)[1:]
+    groups = [list(range(s, min(s + 6, k))) for s in range(0, k, 6)]
+    groups += [[0, 1], [k - 1, 0, k // 2], list(range(min(k, 8))), [3]]
+    for second in (im, col_major, scalar):
+        for first in (re, off.reshape(rows, k)):
+            t = (first, second)
+            for cols in groups:
+                n0 = kf.launches["ext_prod"]
+                got = kf.ext_prod(t, cols)
+                assert kf.launches["ext_prod"] == n0 + (len(cols) > 1)
+                for g, w in zip(got, ext_plain.prod(t, cols)):
+                    assert g.shape == (rows,) and torch.equal(g, w), cols
+    with pytest.raises(ValueError):
+        kf.ext_prod((re, im), list(range(9)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("profiler_sees", [True, False])
+def test_device_ms_names_its_method(cuda, monkeypatch, profiler_sees):
+    from tpu_acir_prover_torch.kernels import field_bench as fb
+    a = gl.from_u64(_rand_u64((1 << 16,), seed=5), cuda)
+    if not profiler_sees:
+        monkeypatch.setattr(fb, "device_totals",
+                            lambda prof, kernels: (0, 0, {}, {}))
+    ms, method = fb.device_ms(lambda: kf.add(a, a), ("gl_binary_kernel",))
+    assert 0 < ms < 1
+    if profiler_sees:
+        assert method in fb.METHODS
+    else:
+        assert method == fb.METHODS[1]
+
+
 @pytest.mark.cuda
 def test_field_ops_reach_the_kernels_through_gl_and_ext(cuda):
     a, b = _field_operands("column", 2, cuda)
@@ -174,7 +277,8 @@ def test_field_ops_reach_the_kernels_through_gl_and_ext(cuda):
     for g, w in zip(results, want):
         assert torch.equal(g, w)
     grew = {k: kf.launches[k] - before[k] for k in before}
-    assert grew == {"gl_binary": 5, "gl_pow": 2, "ext_mul": 2, "ext_inv": 1}
+    assert grew == {"gl_binary": 5, "gl_pow": 2, "ext_mul": 2, "ext_inv": 1,
+                    "ext_prod": 0}
 
 
 @pytest.mark.cuda
@@ -230,7 +334,8 @@ def test_field_kernels_in_a_cuda_graph(cuda):
     with torch.cuda.graph(graph):
         out = chain(kern, a, b, col)
     assert {k: kf.launches[k] - n0[k] for k in n0} == \
-        {"gl_binary": 3, "gl_pow": 2, "ext_mul": 1, "ext_inv": 1}
+        {"gl_binary": 3, "gl_pow": 2, "ext_mul": 1, "ext_inv": 1,
+         "ext_prod": 0}
     for seed in (11, 12):
         load(seed)
         graph.replay()

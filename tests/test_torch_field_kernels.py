@@ -165,7 +165,8 @@ def test_layout_on_the_provers_operands(monkeypatch):
     prove_sharded(ShardedProvingKey(cc, TEST_CONFIG,
                                     mesh=Mesh.on("cpu", 2)), ext)
     kinds = {k[0] for k in seen}
-    assert kinds == {"add", "sub", "mul", "pow_const", "ext_mul", "ext_inv"}
+    assert kinds == {"add", "sub", "mul", "pow_const", "ext_mul", "ext_inv",
+                     "ext_prod"}
     assert any(not t.is_contiguous() for ts in seen.values() for t in ts)
     for tensors in seen.values():
         sizes, _ = _check_layout(tensors)

@@ -2,10 +2,11 @@
 
 Counterpart of ``make_ext`` in ``tpu_acir_prover/field/ext.py``; the host
 scalar ops ``e_add`` .. ``e_pow`` on python-int pairs are copies of that
-module's.  ``mul`` and ``inv`` go through ``kernels/field.py``: CUDA
-tensors to ``ext_mul_kernel`` / ``ext_inv_kernel``, CPU tensors to their
-plain twins in ``field/ext_plain.py``; the other ops are built on those
-and on ``field/gl.py``'s.
+module's.  ``mul``, ``inv`` and ``prod`` go through ``kernels/field.py``:
+CUDA tensors to ``ext_mul_kernel`` / ``ext_inv_kernel`` /
+``ext_prod_kernel``, CPU tensors to their plain twins in
+``field/ext_plain.py``; the other ops are built on those and on
+``field/gl.py``'s.
 """
 
 from __future__ import annotations
@@ -54,6 +55,12 @@ def sqr(x):
 def inv(x):
     """1/(a0 + a1 u) = (a0 - a1 u) / (a0^2 - 7 a1^2); inv(0) = 0."""
     return _kf.ext_inv(x)
+
+
+def prod(t, cols):
+    """The product over ``cols`` (at most 8) of column j of the ext pair
+    ``t`` of (rows, k) tensors, as (rows,) ext values."""
+    return _kf.ext_prod(t, cols)
 
 
 def pow_const(x, e: int):

@@ -150,10 +150,8 @@ def perm_group_products(wires, sigmas, x, k, beta, gamma, groups):
                 gl.add(gl.mul(beta[1], second), gamma[1]))
 
     f_num, f_den = factors(kx), factors(sigmas)
-    nums = [_fold(E.mul, [_ecol(f_num, i) for i in range(s, e)])
-            for s, e in groups]
-    dens = [_fold(E.mul, [_ecol(f_den, i) for i in range(s, e)])
-            for s, e in groups]
+    nums = [E.prod(f_num, range(s, e)) for s, e in groups]
+    dens = [E.prod(f_den, range(s, e)) for s, e in groups]
     return nums, dens
 
 
@@ -453,12 +451,12 @@ class ProvingKey:
             fac = lookup_factors(w, lam)
             hs = [_col(z, K + g) for g in range(nh)]
             for g, (s, e) in enumerate(self.lk_groups):
-                fs = [_ecol(fac, i) for i in range(s, e)]
-                prod = _fold(E.mul, fs)
+                cols = list(range(s, e))
+                prod = E.prod(fac, cols)
                 allbut = _fold(E.add, [
-                    _fold(E.mul, fs[:i] + fs[i + 1:]) if len(fs) > 1
+                    E.prod(fac, cols[:i] + cols[i + 1:]) if len(cols) > 1
                     else E.from_base(torch.ones_like(x))
-                    for i in range(len(fs))])
+                    for i in range(len(cols))])
                 c_h = E.sub(E.mul(hs[g], prod), E.mul_base(allbut, qlk))
                 terms.append(a_mul(base_i + g, c_h))
             h_t = _col(z, K + nh)
