@@ -24,8 +24,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    synchronising calls of each; one replay under ``torch.profiler``: its
    device operations, device time, the device's idle share and each
    Poseidon2 and field kernel's count and device time (the field kernels'
-   also by path); the replay's ext_mul + ext_prod launches, fewer than the
-   528 ext_mul launches of a replay before ext_prod;
+   also by path); the replay's ext_prod and gl_binary launches, as the
+   code counts them (REPLAY_LAUNCHES);
 6. profile: one warm per-phase proof under ``torch.profiler``, the device
    time of all kernels, of the Poseidon2 kernels and of the field kernels;
 7. sharded: ``prove_sharded`` with every shard on cuda:0.  Parity: over 2
@@ -37,7 +37,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    rows): one per-phase proof on a plain key, then ``prove_fused`` on the
    same key (its eager run, the graph's capture and instantiation, then a
    warm proof: times, pool, peak memory and the graph's kernel launches,
-   and one replay under ``torch.profiler`` as in [fused]),
+   its ext_prod launches as the code counts them, and one replay under
+   ``torch.profiler`` as in [fused]),
    then over 4 shards (2 if 4 run out of memory, with the error printed),
    bytes equal, all verified; the key build's and the per-phase proof's
    peaks beside those before the commit ran its NTTs in column blocks.
@@ -71,9 +72,12 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
     the card, bit for bit, at the main path's shapes: a (2^20, 43) matrix
     times a (2^20, 1) column, the NTT's strided radix-4 views at 2^23 rows
     against (1, h, 1) twiddles, a quotient chunk's (2^18,) inverses, round
-    2's (2^17,) ext columns, its group products over (2^17, 16) ext pairs
-    and (2^17, 16) ext inverses; then at every layout (sizes and strides
-    after the wrapper's merging; ext_prod's columns) that the paths above
+    2's (2^17,) ext columns, the grouped products of round 2's (2^17, 16)
+    and a quotient chunk's (2^18, 16) permutation factors and of the
+    chunk's lookup factors with their leave-one-out sums, and (2^17, 16)
+    ext inverses; then at every layout (sizes and strides after the
+    wrapper's merging; ext_prod's groups and how it reads each half, staged
+    or in place) that the paths above
     gave a field kernel, recorded as they ran: each held bit for bit, the
     largest of each class (kernel, op, path in the kernel, rank, broadcast
     dimensions) also timed; with the kernel's device time (a CUDA graph of
@@ -188,7 +192,7 @@ FIELD_REPLACES = {"add": f"{JGL}:98", "sub": f"{JGL}:125",
                   "mul": f"{JGL}:211", "pow": f"{JGL}:221",
                   "inv": f"{JGL}:239",
                   "ext_mul": f"{JEXT}:37", "ext_inv": f"{JEXT}:53",
-                  "ext_prod": f"{JEXT}:37"}
+                  "ext_prod": "tpu_acir_prover/prover/prove.py:267"}
 FIELD_ROWS = 1 << 20                # the ECDSA circuit's LDE rows
 FIELD_NTT_ROWS = 1 << 23            # mul_chain 2^20's LDE rows
 FIELD_NTT_COLS = 8                  # a column block of 2^26 LDE elements
@@ -198,9 +202,16 @@ FIELD_CHUNK = 1 << 18               # a quotient chunk (QUOTIENT_CHUNK)
 FIELD_WIRES = 16                    # the ECDSA circuit's wire columns
 FIELD_OPS = ("add", "sub", "mul")   # gl_binary_kernel's op codes
 FIELD_PATHS = ("flat", "rows", "tiled", "general")   # csrc/field.cu's Path
-# a fused ECDSA replay's ext_mul launches before ext_prod took the column
-# folds (NVIDIA H100 80GB HBM3, 700 W)
-EXT_MUL_REPLAY_BEFORE = 528
+FIELD_PERM_GROUPS = ((0, 6), (6, 12), (12, 16))   # circuit/builder.py's
+FIELD_LOOKUP_GROUPS = ((0, 4), (4, 8), (8, 12), (12, 16))
+# One fused replay's launches as the code counts them: ext_prod makes one
+# launch a factor matrix, two in round 2 and, in each quotient chunk of
+# 2^18 LDE rows, two for the permutation and one for the lookup (4 chunks
+# at ECDSA, 32 at 2^20, which has no lookup); the lookup's leave-one-out
+# sums are ext_prod's, so ECDSA's gl_binary launches are the 2,571 of one
+# leave-one-out product a launch less the 24 adds of a chunk's 4 groups.
+REPLAY_LAUNCHES = {"ecdsa": {"ext_prod": 2 + 4 * 3, "gl_binary": 2571 - 96},
+                   "mul_chain": {"ext_prod": 2 + 32 * 2}}
 GENERAL_LARGE = 1 << 16             # elements: general unexpected above rank 1
 # The Goldilocks products of one inverse: gl_inv's addition chain for
 # p - 2 in csrc/field.cu, 64 squarings and 9 multiplies
@@ -534,51 +545,16 @@ def _read_bytes(t):
     return 8 * n
 
 
-def _sass_per_product():
-    """(IMAD-class, all) SASS instructions of one Goldilocks product in the
-    field library: gl_binary_kernel<MUL, GENERAL> less gl_binary_kernel<ADD,
-    GENERAL> (the same kernel, one element a thread, but for the op), by
-    the toolkit's ``cuobjdump -sass``."""
-    import re
-    from pathlib import Path
-
-    from tpu_acir_prover_torch.kernels import field as kf
-    from tpu_acir_prover_torch.kernels import nvcc
-    tool = Path(nvcc.nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", str(kf.build())],
-                          capture_output=True, text=True, check=True).stdout
-    counts, cur = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            cur = line.split("Function :", 1)[1].strip()
-            counts[cur] = [0, 0]
-        elif cur and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
-            counts[cur][1] += 1
-            counts[cur][0] += "IMAD" in line
-
-    def of(op):
-        general = FIELD_PATHS.index("general")
-        names = [k for k in counts
-                 if f"gl_binary_kernelILi{op}ELi{general}EE" in k]
-        if len(names) != 1:
-            raise AssertionError(f"gl_binary_kernel<{op}> in the SASS: "
-                                 f"{names}")
-        return counts[names[0]]
-
-    (mi, ma), (ai, aa) = of(2), of(0)
-    return mi - ai, ma - aa
-
-
 @contextlib.contextmanager
 def field_layouts(seen, captured, kernel_path):
     """While open, counts in ``seen[layout][path]`` the field kernels'
     launches by the layout the wrapper gave the kernel: (kernel, op,
-    exponent or ext_prod's columns, sizes, strides per operand), after its
-    merging of dimensions; ``path`` is the name last given to the function
-    this yields.  Launches while a CUDA graph is being captured also count
-    in ``captured[path][layout]``; ``kernel_path[layout]`` is the path the
-    kernel takes.  The wrappers run unchanged and count their own
-    launches."""
+    exponent or ext_prod's (groups, allbut), sizes, strides per operand),
+    after its merging of dimensions; ``path`` is the name last given to the
+    function this yields.  Launches while a CUDA graph is being captured
+    also count in ``captured[path][layout]``; ``kernel_path[layout]`` is
+    the path the kernel takes.  The wrappers run unchanged and count their
+    own launches."""
     from tpu_acir_prover_torch.kernels import field as kf
     launch, path = kf._launch, ["-"]
 
@@ -622,10 +598,30 @@ def _field_calls(what, arg):
         return ("ext_mul", lambda x: list(kf.ext_mul(x[:2], x[2:])),
                 lambda x: list(ext_plain.mul(x[:2], x[2:])), 4)
     if what == "ext_prod":
-        return ("ext_prod", lambda x: list(kf.ext_prod(x, arg)),
-                lambda x: list(ext_plain.prod(x, arg)), 4 * (len(arg) - 1))
+        groups, allbut = arg
+        return ("ext_prod", lambda x: _flat_ext(kf.ext_prod(x, *arg), allbut),
+                lambda x: _flat_ext(ext_plain.group_prod(x, *arg), allbut),
+                4 * sum(_group_products(e - s, allbut) for s, e in groups))
     return ("ext_inv", lambda x: list(kf.ext_inv(x)),
             lambda x: list(ext_plain.inv(x)), INV_PRODUCTS + 4)
+
+
+def _group_products(cols, allbut):
+    """ext_prod's ext products for a group of ``cols`` columns: a running
+    product, and with ``allbut`` the leave-one-out sum beside it (2 cols -
+    3 in all)."""
+    if cols == 1:
+        return 0
+    return 2 * cols - 3 if allbut else cols - 1
+
+
+def _flat_ext(out, allbut):
+    """ext_prod's (products[, sums]) as one list of (rows,) tensors (the
+    twin's one-column sums are expanded constants)."""
+    lists = out if allbut else (out,)
+    vals = [v for pairs in lists for pair in pairs for v in pair]
+    rows = max(v.shape[0] if v.dim() else 1 for v in vals)
+    return [v.expand(rows) for v in vals]
 
 
 def _hold_field(x, kern, twin, what, kernel=None):
@@ -650,6 +646,13 @@ def _hold_field(x, kern, twin, what, kernel=None):
     return err, got[0].numel(), len(got), ms, plain_ms, method
 
 
+def _prod_modes(x):
+    """How ext_prod reads each half of the pair ``x``, as its launches
+    name it."""
+    from tpu_acir_prover_torch.kernels import field as kf
+    return "/".join(kf.HALF_MODES[kf.half_mode(h, h.shape[1])] for h in x)
+
+
 def _field_bound(x, n, outputs, products, per_product):
     """(bound_ms, bound_by, bytes) of a field kernel's work: its distinct
     operand elements read once and its outputs written once over the
@@ -666,15 +669,16 @@ def _field_bound(x, n, outputs, products, per_product):
 def _layout_bound(key, per_product):
     """(bound_ms, bound_by, bytes, products) of one launch at a recorded
     layout ``key``, as ``_field_bound`` counts it: each operand's distinct
-    elements read once (ext_prod: the listed columns of each half), the
+    elements read once (ext_prod: the groups' columns of each half), the
     outputs written once, or the products."""
     what, arg, sizes, strides = key
     n = math.prod(sizes)
     if what == "ext_prod":
-        rows, cols = sizes[0], len(arg)
+        (groups, allbut), rows = arg, sizes[0]
+        cols = sum(e - s for s, e in groups)
         nbytes = sum(8 * (rows * cols if any(st) else 1) for st in strides)
-        nbytes += 2 * 8 * rows
-        products = rows * 4 * (cols - 1)
+        nbytes += (1 + allbut) * 2 * len(groups) * 8 * rows
+        products = rows * _field_calls(what, arg)[3]
     else:
         nbytes = sum(8 * math.prod(z for z, x in zip(sizes, st) if x)
                      for st in strides)
@@ -727,13 +731,17 @@ def phase_field(main_launches, seen, kernel_path, captured, replays):
     from tpu_acir_prover_torch.field import gl_plain
     from tpu_acir_prover_torch.kernels import field as kf
     from tpu_acir_prover_torch.kernels.bench import field_input
-    from tpu_acir_prover_torch.kernels.field_bench import host_us
+    from tpu_acir_prover_torch.kernels.field_bench import (
+        host_us, sass_counts, sass_per_product)
     rng = np.random.default_rng(2025)
     dev = torch.device("cuda")
-    per_product, instructions = _sass_per_product()
+    counts = sass_counts()
+    per_product, instructions = sass_per_product(counts)
     say(f"[field] one Goldilocks product in field.cu: {per_product} "
         f"IMAD-class of {instructions} SASS instructions (cuobjdump); an "
-        f"inverse is {INV_PRODUCTS} products (gl_inv's addition chain)")
+        f"inverse is {INV_PRODUCTS} products (gl_inv's addition chain); "
+        f"ext_prod_kernel [IMAD-class, all]: " + ", ".join(
+            f"{k} {v}" for k, v in counts.items() if "ext_prod_kernel" in k))
     host = host_us(rng, dev)
     say("[field] wrapper host time per call (calls back to back, no "
         "synchronisation): " + ", ".join(
@@ -753,13 +761,12 @@ def phase_field(main_launches, seen, kernel_path, captured, replays):
         x0, x1, y0, y1 = (col(n, w) for _ in range(4))
         return (x0[:, 3], x1[:, 3], y0[:, 5], y1[:, 5])
 
-    def lookup_factors():
-        n, w = FIELD_TRACE_ROWS, FIELD_WIRES
+    def lookup_factors(n=FIELD_TRACE_ROWS):
+        w = FIELD_WIRES
         return (col(n, w), field_input(rng, (), dev).expand(n, w))
 
-    def perm_factors():
-        n, w = FIELD_TRACE_ROWS, FIELD_WIRES
-        return (col(n, w), col(n, w))
+    def perm_factors(n):
+        return (col(n, FIELD_WIRES), col(n, FIELD_WIRES))
 
     ntt = {}
 
@@ -785,11 +792,15 @@ def phase_field(main_launches, seen, kernel_path, captured, replays):
          lambda: (col(FIELD_CHUNK, 1).reshape(-1),)),
         ("ext_mul", None, "(2^17,) ext columns of (2^17, 16) pairs "
          "(stride 16): round 2's chained products", ext_cols),
-        ("ext_prod", tuple(range(6)), "(2^17, 16) ext pair, columns 0-5: "
-         "round 2's permutation group product", perm_factors),
-        ("ext_prod", (0, 1, 2), "(2^17, 16) ext pair, lam1 broadcast, "
-         "columns 0-2: a lookup group's product without one column",
-         lookup_factors),
+        ("ext_prod", (FIELD_PERM_GROUPS, False), "(2^17, 16) ext pair, "
+         "groups 0-5, 6-11, 12-15: round 2's permutation products",
+         lambda: perm_factors(FIELD_TRACE_ROWS)),
+        ("ext_prod", (FIELD_PERM_GROUPS, False), "(2^18, 16) ext pair, "
+         "groups 0-5, 6-11, 12-15: a quotient chunk's permutation products",
+         lambda: perm_factors(FIELD_CHUNK)),
+        ("ext_prod", (FIELD_LOOKUP_GROUPS, True), "(2^18, 16) ext pair, lam1 "
+         "broadcast, 4 groups of 4 with their leave-one-out sums: a quotient "
+         "chunk's LogUp constraint", lambda: lookup_factors(FIELD_CHUNK)),
         ("ext_inv", None, "(2^17, 16): round 2's lookup factors (lam0 - w, "
          "lam1 broadcast)", lookup_factors),
     ]
@@ -802,7 +813,7 @@ def phase_field(main_launches, seen, kernel_path, captured, replays):
             x, kern, twin, what, f"{name}_kernel")
         bound_ms, bound_by, nbytes = _field_bound(x, n, outs, products,
                                                   per_product)
-        if bound:       # ext_prod: the listed columns, not whole halves
+        if bound:       # ext_prod: the groups' columns, not whole halves
             bound_ms, bound_by, nbytes = bound[:3]
         say(f"[field] {what}: bit-identical to the plain twin; kernel "
             f"{ms:.4f} ms (device), plain {plain_ms:.2f} ms, bound "
@@ -829,7 +840,8 @@ def phase_field(main_launches, seen, kernel_path, captured, replays):
             key = (name, arg, tuple(x[0].shape),
                    (tuple(x[0].stride()), tuple(x[1].stride())))
             bound = _layout_bound(key, per_product)
-            extra = {"columns": list(arg)}
+            extra = {"groups": [list(g) for g in arg[0]], "allbut": arg[1],
+                     "kernel_path": _prod_modes(x)}
             x = tuple(x)
         elif name in ("gl_binary", "ext_mul"):
             _, sizes, strides = kf.layout(*x)
@@ -847,6 +859,7 @@ def phase_field(main_launches, seen, kernel_path, captured, replays):
         raise AssertionError("the paths recorded no field kernel launch")
     span = max(1 + sum((s - 1) * x for s, x in zip(sizes, st))
                for _, _, sizes, strides in seen for st in strides)
+    span += span % 2        # each operand 16-byte aligned, as torch's are
     pool = field_input(rng, (4 * span,), dev)     # at most 4 operands
     classes = collections.defaultdict(list)
     for key in seen:
@@ -864,6 +877,9 @@ def phase_field(main_launches, seen, kernel_path, captured, replays):
             x = [torch.as_strided(pool, key[2], st, k * span)
                  for k, st in enumerate(key[3])]
             if what == "ext_prod":
+                if _prod_modes(x) != kpath:
+                    raise AssertionError(f"{key}: read as {_prod_modes(x)}, "
+                                         f"recorded as {kpath}")
                 return tuple(x)
             if kf.layout(*x)[1:] != (list(key[2]), [list(s) for s in key[3]]):
                 raise AssertionError(f"{key}: the operands' layout is "
@@ -888,7 +904,8 @@ def phase_field(main_launches, seen, kernel_path, captured, replays):
                  "calls_in_class": dict(calls), "kernel_path": kpath}
         bound = None
         if what == "ext_prod":
-            extra["columns"] = list(key[1])
+            extra.update(groups=[list(g) for g in key[1][0]],
+                         allbut=key[1][1])
             bound = _layout_bound(key, per_product)
         record(what, op, f"recorded layout: sizes {list(sizes)}, strides "
                f"{[list(st) for st in strides]}", x, kern, twin, products,
@@ -1062,13 +1079,7 @@ def phase_fused(pk, ext, data):
                if v == 0 and k not in OFF_PATH]
     if missing:
         raise AssertionError(f"the captured graph holds no {missing}")
-    ext_launches = cap.launches["ext_mul"] + cap.launches["ext_prod"]
-    say(f"[fused] ext_mul + ext_prod launches a replay: "
-        f"{cap.launches['ext_mul']} + {cap.launches['ext_prod']} = "
-        f"{ext_launches} (ext_mul alone before ext_prod: "
-        f"{EXT_MUL_REPLAY_BEFORE})")
-    if ext_launches >= EXT_MUL_REPLAY_BEFORE:
-        raise AssertionError("ext_prod did not take launches off the replay")
+    _check_launches(cap.launches, REPLAY_LAUNCHES["ecdsa"], "[fused]")
     per_phase, seen = _in_turns(pk, ext, data, "[fused]")
     _, n_fused = count_syncs(lambda: prove_fused(pk, ext))
     _, n_phase = count_syncs(lambda: prove(pk, ext))
@@ -1076,6 +1087,14 @@ def phase_fused(pk, ext, data):
         f"{n_fused}, per-phase {n_phase}")
     replay = profile_replay(pk, ext)
     return seen[0], per_phase, replay
+
+
+def _check_launches(launches, want, tag):
+    """The replay's launches of the kernels in ``want`` are ``want``'s."""
+    got = {k: launches[k] for k in want}
+    say(f"{tag} launches a replay as the code counts them: {got}")
+    if got != want:
+        raise AssertionError(f"{tag}: a replay launches {got}, not {want}")
 
 
 def _in_turns(pk, ext, data, phase):
@@ -1311,11 +1330,12 @@ def phase_sharded(pk, ext, data, per_phase):
             "shapes": log, "rows": spk.m // SHARDS}
 
 
-def _fused_on_key(pk, ext, want, tag, phase):
+def _fused_on_key(pk, ext, want, tag, phase, launches=None):
     """``prove_fused`` on a 2^20-row key that proved per-phase: the first
     proof (an eager run, the graph's capture and instantiation, a replay),
     then a warm one; bytes equal to the per-phase proof's ``want``,
-    verified.  Returns the path, with one replay's kernel launches (the
+    verified; a replay's launches of the kernels in ``launches`` are
+    those.  Returns the path, with one replay's kernel launches (the
     capture's count)."""
     from tpu_acir_prover_torch.kernels import poseidon as kp
     from tpu_acir_prover_torch.prover.fused import prove_fused
@@ -1345,6 +1365,8 @@ def _fused_on_key(pk, ext, want, tag, phase):
         f"replay), peak allocated {cold_peak:.3f} GiB; graph pool "
         f"{cap.pool_bytes / 2**30:.3f} GiB kept between replays; kernel "
         f"launches a replay (the capture's count) {cap.launches}")
+    if launches:
+        _check_launches(cap.launches, launches, f"{phase} {ftag}:")
     timer = PhaseTimer()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1670,7 +1692,8 @@ def phase_mul_chain():
         f"({UNBLOCKED_PEAKS_GIB['proof']} GiB before column blocks); "
         f"launches {launches}; verified")
     del proof
-    paths.append(_fused_on_key(pk, ext, want, tag, "[sharded]"))
+    paths.append(_fused_on_key(pk, ext, want, tag, "[sharded]",
+                               REPLAY_LAUNCHES["mul_chain"]))
     del pk
     torch.cuda.empty_cache()
     for shards in (SHARDS, 2):

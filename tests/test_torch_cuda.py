@@ -222,28 +222,64 @@ def test_field_kernel_paths_match_twin(cuda, name):
         assert torch.equal(g, w)
 
 
+def _partitions(k):
+    """Groups of ext_prod over k columns: the permutation's 6-wide and the
+    lookup's 4-wide runs, single columns (at most 8), one group of up to 8
+    columns, and odd starts with gaps."""
+    out = [[(s, min(s + 6, k)) for s in range(0, k, 6)],
+           [(s, min(s + 4, k)) for s in range(0, k, 4)],
+           [(c, c + 1) for c in range(min(k, 8))],
+           [(k - min(k, 8), k)]]
+    if k >= 5:
+        out.append([(k - 2, k), (1, 3)])
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [16, 17, 5])
-def test_ext_prod_kernel_matches_twin(cuda, k):
-    rows = 3 * 128 + 5      # not a multiple of the 128-row block
-    re, im = (gl.from_u64(_rand_u64((rows, k), seed=k + s), cuda)
-              for s in (0, 1))
-    col_major = gl.from_u64(_rand_u64((k, rows), seed=k + 2), cuda).t()
-    scalar = gl.const(12345, re).expand(rows, k)
-    off = gl.from_u64(_rand_u64((rows * k + 1,), seed=k + 3), cuda)[1:]
-    groups = [list(range(s, min(s + 6, k))) for s in range(0, k, 6)]
-    groups += [[0, 1], [k - 1, 0, k // 2], list(range(min(k, 8))), [3]]
-    for second in (im, col_major, scalar):
-        for first in (re, off.reshape(rows, k)):
-            t = (first, second)
-            for cols in groups:
+@pytest.mark.parametrize("rows", [3 * 128 + 5, (1 << 17) + 3])
+@pytest.mark.parametrize("k", [16, 9, 5, 1])
+def test_ext_prod_kernel_matches_twin(cuda, k, rows):
+    """Every partition, with and without the leave-one-out sums, on halves
+    that are staged (contiguous), direct (8 bytes off 16, rows of k + 1,
+    transposed) and broadcast, against the plain twin bit for bit; one
+    launch a call, each output a contiguous (rows,) vector."""
+    def rand(shape, seed):
+        return gl.from_u64(_rand_u64(shape, seed=seed), cuda)
+
+    views = {
+        "contiguous": rand((rows, k), k),
+        "8 bytes off 16": rand((rows * k + 1,), k + 1)[1:].reshape(rows, k),
+        "rows of k + 1": rand((rows, k + 1), k + 2)[:, :k],
+        "transposed": rand((k, rows), k + 3).t(),
+        "broadcast": gl.const(12345, device=cuda).expand(rows, k),
+    }
+    pairs = [("contiguous", "contiguous"), ("contiguous", "broadcast")]
+    if rows < 1000:
+        pairs += [(a, b) for a in views for b in views
+                  if (a, b) not in pairs]
+    modes = set()
+    for first, second in pairs:
+        t = (views[first], views[second])
+        modes.add(tuple(kf.half_mode(h, k) for h in t))
+        for groups in _partitions(k):
+            for allbut in (False, True):
                 n0 = kf.launches["ext_prod"]
-                got = kf.ext_prod(t, cols)
-                assert kf.launches["ext_prod"] == n0 + (len(cols) > 1)
-                for g, w in zip(got, ext_plain.prod(t, cols)):
-                    assert g.shape == (rows,) and torch.equal(g, w), cols
-    with pytest.raises(ValueError):
-        kf.ext_prod((re, im), list(range(9)))
+                got = kf.ext_prod(t, groups, allbut)
+                assert kf.launches["ext_prod"] == n0 + 1
+                want = ext_plain.group_prod(t, groups, allbut)
+                if not allbut:
+                    got, want = (got,), (want,)
+                for gs, ws in zip(got, want):
+                    assert len(gs) == len(groups)
+                    for g, w in zip(gs, ws):
+                        for a, b in zip(g, w):
+                            assert a.shape == (rows,) and a.is_contiguous()
+                            assert torch.equal(a, b.expand(rows)), \
+                                (first, second, groups, allbut)
+    assert (kf.STAGED, kf.STAGED) in modes and (kf.STAGED, kf.BCAST) in modes
+    for groups in ([(c, c + 1) for c in range(9)], [(0, 2), (1, 3)]):
+        with pytest.raises(ValueError):
+            kf.ext_prod((views["contiguous"],) * 2, groups)
 
 
 @pytest.mark.cuda
@@ -306,16 +342,21 @@ def test_field_kernels_in_a_cuda_graph(cuda):
         s = g["mul"](g["add"](x, c), g["sub"](y, c))
         t = g["inv"](s)
         e = g["ext_mul"]((s, t), (x, c))
-        return list(g["ext_inv"](e)) + [g["pow"](t)]
+        prods, sums = g["prod"]((s.reshape(-1, 16), t.reshape(-1, 16)),
+                                [(0, 6), (6, 12), (12, 16)], True)
+        return list(g["ext_inv"](e)) + [g["pow"](t)] + \
+            [v for pair in prods + sums for v in pair]
 
     kern = {"add": kf.add, "sub": kf.sub, "mul": kf.mul,
             "inv": lambda x: kf.pow_const(x, P - 2),
             "pow": lambda x: kf.pow_const(x, POW_E),
-            "ext_mul": kf.ext_mul, "ext_inv": kf.ext_inv}
+            "ext_mul": kf.ext_mul, "ext_inv": kf.ext_inv,
+            "prod": kf.ext_prod}
     twin = {"add": gl_plain.add, "sub": gl_plain.sub, "mul": gl_plain.mul,
             "inv": gl_plain.inv,
             "pow": lambda x: gl_plain.pow_const(x, POW_E),
-            "ext_mul": ext_plain.mul, "ext_inv": ext_plain.inv}
+            "ext_mul": ext_plain.mul, "ext_inv": ext_plain.inv,
+            "prod": ext_plain.group_prod}
 
     def load(seed):
         x, y = _field_operands("row", 2, cuda, seed)
@@ -335,7 +376,7 @@ def test_field_kernels_in_a_cuda_graph(cuda):
         out = chain(kern, a, b, col)
     assert {k: kf.launches[k] - n0[k] for k in n0} == \
         {"gl_binary": 3, "gl_pow": 2, "ext_mul": 1, "ext_inv": 1,
-         "ext_prod": 0}
+         "ext_prod": 1}
     for seed in (11, 12):
         load(seed)
         graph.replay()

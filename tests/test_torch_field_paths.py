@@ -1,10 +1,12 @@
 """The field kernels' paths (``kernels/field.plan``) and ext_prod's reads
 on the CPU: each path's index map, written here as ``csrc/field.cu``
 computes it, reads the elements ``torch.broadcast_tensors`` gives and
-writes each output element once; the per-phase, fused and sharded
-provers' operand tuples each get a path; ``ext_plain.prod`` (the twin of
-``ext_prod_kernel``) against the JAX package's numpy ``make_ext`` fold.
-The kernels themselves run in ``tests/test_torch_cuda.py`` on the card."""
+writes each output element once; ext_prod's staged tiles and direct reads
+read the listed columns; the per-phase, fused and sharded provers' operand
+tuples each get a path; ``ext_plain.group_prod`` (the twin of
+``ext_prod_kernel``) against the JAX package's numpy ``grouped_fold`` and
+prefix x suffix sums, and its ``make_ext`` fold.  The kernels themselves
+run in ``tests/test_torch_cuda.py`` on the card."""
 
 import numpy as np
 import pytest
@@ -219,37 +221,118 @@ def test_plan_of_the_main_paths_layouts(sizes, strides, want):
         assert grid[0] * width >= sizes[-1]
 
 
-def _prod_reads(t, cols):
-    """The value ext_prod_kernel reads for (row, column j of cols) of each
-    half, as it reads them (row * row stride + column * column stride from
-    the half's storage offset), from each half's storage."""
-    rows, _ = t[0].shape
+def _storage(h):
+    """The u64 bits of the whole storage under the view ``h``, as int64."""
+    return gl.to_u64(torch.as_strided(
+        h, (h.untyped_storage().nbytes() // 8,), (1,), 0)).view(np.int64)
+
+
+def _group_reads(t, groups):
+    """The value ext_prod_kernel reads for (row, column c) of each half, c
+    over the groups' columns, as it reads them: a broadcast half once from
+    its storage offset; a direct half at row * row stride + c * column
+    stride; a staged half from the tile of its row, which holds the
+    tile's rows * k values from the row's storage, chunk q (values 2q, 2q
+    + 1; the last one's second zero past the tile) in slot
+    ``kf.tile_slot(q)``, read as value f = r k + c of the tile, local row
+    r: at f & 1 in slot tile_slot(f >> 1).  Returns each half's (rows,
+    columns) values and its mode."""
+    rows, k = t[0].shape
+    cols = np.array([c for s, e in groups for c in range(s, e)])
     got = []
     for h in t:
+        mode = kf.half_mode(h, k)
+        flat, off = _storage(h), h.storage_offset()
         rs, cs = h.stride()
-        flat = gl.to_u64(torch.as_strided(
-            h, (h.untyped_storage().nbytes() // 8,), (1,), 0)).view(np.int64)
-        r = np.arange(rows)[:, None]
-        c = np.array(cols)[None, :]
-        got.append(torch.from_numpy(flat[h.storage_offset() + r * rs +
-                                         c * cs]))
+        if mode == kf.BCAST:
+            vals = np.full((rows, len(cols)), flat[off], dtype=np.int64)
+        elif mode == kf.DIRECT:
+            r = np.arange(rows)[:, None]
+            vals = flat[off + r * rs + cols[None, :] * cs]
+        else:
+            assert (rs, cs) == (k, 1) and h.data_ptr() % 16 == 0
+            vals = np.empty((rows, len(cols)), dtype=np.int64)
+            for row0 in range(0, rows, kf.GP_ROWS):
+                words = min(kf.GP_ROWS, rows - row0) * k
+                q = np.arange((words + 1) // 2)
+                slot = kf.tile_slot(q)
+                # slots: one a chunk, inside the tile's GP_ROWS * k values
+                assert len(set(slot.tolist())) == len(q)
+                assert slot.max() < kf.GP_ROWS * k // 2
+                tile = np.full(kf.GP_ROWS * k, -1, dtype=np.int64)
+                src = flat[off + row0 * k:off + row0 * k + words]
+                tile[2 * slot] = src[2 * q]
+                tile[2 * slot + 1] = np.where(
+                    2 * q + 1 < words, src[np.minimum(2 * q + 1, words - 1)],
+                    0)
+                r = np.arange(words // k)[:, None]
+                f = r * k + cols[None, :]
+                vals[row0:row0 + words // k] = \
+                    tile[2 * kf.tile_slot(f >> 1) + (f & 1)]
+        got.append((torch.from_numpy(vals), mode))
     return got
 
 
-@pytest.mark.parametrize("k,cols", [
-    (16, [0, 1, 2, 3, 4, 5]), (16, [6, 7, 8, 9, 10, 11]),
-    (16, [12, 13, 14, 15]), (16, [13, 15]), (17, [1, 2, 3]),
-    (5, [0, 1, 2, 3, 4]), (16, [0, 15]), (9, [8, 0, 4])])
-def test_ext_prod_reads_the_listed_columns(k, cols):
-    rows = 2 * kf.PROD_ROWS + 3
-    re = _t((rows, k), k)
-    off = _t((rows * k + 1,), k + 3)[1:].reshape(rows, k)
-    for first in (re, off):
-        for im in (_t((rows, k), k + 1), gl.const(9, re).expand(rows, k),
-                   _t((k, rows), k + 2).t()):
-            got = _prod_reads((first, im), cols)
-            for g, h in zip(got, (first, im)):
-                assert torch.equal(g, h[:, cols])
+def _layouts(rows, k, seed):
+    """Halves of a (rows, k) pair in every layout ext_prod takes, each
+    with the mode it reads it in: contiguous (staged), broadcast, 8 bytes
+    off 16 (direct), rows of k + 1 (direct), transposed (direct)."""
+    return {
+        "contiguous": (_t((rows, k), seed), kf.STAGED),
+        "broadcast": (gl.const((1 << 32) - 1, device="cpu").expand(rows, k),
+                      kf.BCAST),
+        "8 bytes off 16": (_t((rows * k + 1,), seed + 1)[1:].reshape(rows, k),
+                           kf.DIRECT),
+        "rows of k + 1": (_t((rows, k + 1), seed + 2)[:, :k], kf.DIRECT),
+        "transposed": (_t((k, rows), seed + 3).t(), kf.DIRECT),
+    }
+
+
+# (k, groups) of ext_prod: the permutation's and the lookup's partitions of
+# the 16 wires, groups of 1 to 8 columns, gaps, odd starts, k from 1 to 16
+PARTITIONS = {
+    "perm 6, 6, 4": (16, [(0, 6), (6, 12), (12, 16)]),
+    "lookup 4 x 4": (16, [(0, 4), (4, 8), (8, 12), (12, 16)]),
+    "1, 2, 3, 4, 5 columns": (16, [(0, 1), (1, 3), (3, 6), (6, 10),
+                                   (10, 15)]),
+    "8, 6, 2 columns": (16, [(8, 16), (2, 8), (0, 2)]),
+    "7 and 3, gaps": (16, [(9, 16), (1, 4)]),
+    "8 groups of 1": (16, [(c, c + 1) for c in range(1, 16, 2)]),
+    "k 1": (1, [(0, 1)]),
+    "k 5, odd": (5, [(0, 2), (2, 5)]),
+    "k 9, odd, gaps": (9, [(8, 9), (0, 4), (5, 8)]),
+    "k 12": (12, [(3, 11)]),
+}
+
+
+@pytest.mark.parametrize("first", ["contiguous", "8 bytes off 16",
+                                   "rows of k + 1", "transposed"])
+@pytest.mark.parametrize("name", sorted(PARTITIONS))
+def test_ext_prod_reads_the_listed_columns(name, first):
+    """The kernel's index map, staged and direct, against the halves'
+    values for each partition, the second half in every layout."""
+    k, groups = PARTITIONS[name]
+    rows = 2 * kf.GP_ROWS + 3      # a last tile of 3 rows
+    views = _layouts(rows, k, k)
+    cols = [c for s, e in groups for c in range(s, e)]
+    for second in views:
+        t = (views[first][0], views[second][0])
+        for (vals, mode), h, want in zip(_group_reads(t, groups), t,
+                                         (views[first][1],
+                                          views[second][1])):
+            assert mode == want
+            assert torch.equal(vals, h[:, cols])
+
+
+def test_staged_tile_reads_are_free_of_bank_conflicts():
+    """At k = 16 the eight rows of a quarter warp read two neighbouring
+    columns from even values with one 16-byte load each: eight different
+    16-byte bank groups (of eight) for every column pair and row offset."""
+    k = 16
+    for r0 in range(0, kf.GP_ROWS, 8):
+        for c in range(0, k, 2):
+            f = (r0 + np.arange(8)) * k + c
+            assert len(set((kf.tile_slot(f >> 1) % 8).tolist())) == 8
 
 
 def _limbs(v):
@@ -257,8 +340,60 @@ def _limbs(v):
             (v >> np.uint64(32)).astype(np.uint32))
 
 
+def _jax_group_values(v0, v1, groups, k):
+    """The JAX package's numpy grouped products and leave-one-out sums of
+    the (rows, k) u64 halves v0, v1, as its quotient computes them
+    (``grouped_fold``; ``_axis_excl_products`` prefix x suffix, masked,
+    folded with add): two lists of (re, im) u64 arrays."""
+    from tpu_acir_prover.prover import prove as jprove
+    fmat = (_limbs(v0), _limbs(v1))
+    prods = jprove.grouped_fold(G, EXT, fmat, groups, EXT.mul,
+                                jprove._EXT_ONE_NEUTRAL)
+    idxd, maskd, _ = jprove._group_gather(G, groups, k)
+    tens = jprove._group_tensor(G, fmat, idxd, maskd,
+                                jprove._EXT_ONE_NEUTRAL)
+    allbut = EXT.mul(jprove._axis_excl_products(EXT, tens),
+                     jprove._axis_excl_products(EXT, tens, reverse=True))
+    ab0 = tuple(tuple(np.where(maskd, c, np.uint32(0)) for c in comp)
+                for comp in allbut)
+    sums = jprove._fold_last_axis(EXT.add, ab0)
+
+    def split(x):
+        return [(G.to_u64(x[0])[:, g], G.to_u64(x[1])[:, g])
+                for g in range(len(groups))]
+    return split(prods), split(sums)
+
+
+@pytest.mark.parametrize("allbut", [False, True])
+@pytest.mark.parametrize("im", ["values", "broadcast"])
+@pytest.mark.parametrize("name", sorted(PARTITIONS))
+def test_group_prod_matches_the_jax_grouped_fold(name, im, allbut):
+    """The plain twin (``E.group_prod`` on CPU tensors) against the JAX
+    package's numpy ``grouped_fold`` and prefix x suffix sums."""
+    k, groups = PARTITIONS[name]
+    rows = 40
+    v0 = _u64((rows, k), k)
+    v1 = _u64((rows, k), 50 + k) if im == "values" else \
+        np.full((rows, k), (1 << 32) - 1, dtype=np.uint64)
+    t = (gl.from_u64(v0, "cpu"), gl.from_u64(v1, "cpu"))
+    if im == "broadcast":
+        t = (t[0], gl.const((1 << 32) - 1, device="cpu").expand(rows, k))
+    got = E.group_prod(t, groups, allbut)
+    prods, sums = _jax_group_values(v0, v1, groups, k)
+    for lists in ((got[0], prods), (got[1], sums)) if allbut else \
+            ((got, prods),):
+        assert len(lists[0]) == len(groups)
+        for g, w in zip(*lists):
+            for a, b in zip(g, w):
+                assert np.array_equal(gl.to_u64(a.expand(rows)), b)
+
+
 @pytest.mark.parametrize("count", range(1, 9))
 def test_prod_matches_the_numpy_ext_fold(count):
+    """A group of ``count`` columns at three starts, with every edge value
+    against every other, against a sequential fold of the JAX package's
+    numpy ext ``mul``; the grouped twin also against ``_fold`` of
+    ``E.mul``."""
     rows, k = 40, 16
     v0, v1 = _u64((rows, k), count), _u64((rows, k), 50 + count)
     # the edge values in every listed column, against each other
@@ -269,9 +404,7 @@ def test_prod_matches_the_numpy_ext_fold(count):
     starts = sorted({0, k - count, (k - count) // 2})
     for s in starts:
         cols = list(range(s, s + count))
-        got = ext_plain.prod(t, cols)
-        assert all(torch.equal(a, b) for a, b in
-                   zip(got, E.prod(t, cols)))
+        (got,) = E.group_prod(t, [(s, s + count)])
         assert all(torch.equal(a, b) for a, b in zip(got, _fold(
             E.mul, [(t[0][:, c], t[1][:, c]) for c in cols])))
         want = None
@@ -283,34 +416,58 @@ def test_prod_matches_the_numpy_ext_fold(count):
 
 
 def test_prod_allbut_sets_match_the_numpy_ext_fold():
-    """The lookup constraint's products over a group's columns without
-    column i, on a broadcast imaginary half, as the quotient takes them."""
+    """The lookup constraint's sum over a group's columns i of the product
+    of the others, on a broadcast imaginary half, as the quotient takes
+    them, against sequential folds of the JAX package's numpy ext ``mul``
+    and ``add``; a group of one column sums to 1."""
     rows, k = 33, 16
     re = _t((rows, k), 90)
     im = gl.const((1 << 32) - 1, re).expand(rows, k)
-    for s, e in ((0, 4), (12, 16), (4, 8)):
+    groups = [(0, 4), (12, 16), (4, 8), (9, 10), (10, 12)]
+    prods, sums = E.group_prod((re, im), groups, allbut=True)
+    for (s, e), got in zip(groups, sums):
         cols = list(range(s, e))
+        want = None
         for i in range(len(cols)):
-            sub = cols[:i] + cols[i + 1:]
-            got = E.prod((re, im), sub)
-            want = None
-            for c in sub:
-                x = (_limbs(gl.to_u64(re[:, c])),
-                     _limbs(gl.to_u64(im[:, c]).copy()))
-                want = x if want is None else EXT.mul(want, x)
-            for g, w in zip(got, want):
-                assert np.array_equal(gl.to_u64(g), G.to_u64(w))
+            term = (_limbs(np.ones(rows, dtype=np.uint64)),
+                    _limbs(np.zeros(rows, dtype=np.uint64)))
+            for c in cols[:i] + cols[i + 1:]:
+                term = EXT.mul(term, (_limbs(gl.to_u64(re[:, c])),
+                                      _limbs(gl.to_u64(im[:, c]).copy())))
+            want = term if want is None else EXT.add(want, term)
+        for g, w in zip(got, want):
+            assert np.array_equal(gl.to_u64(g.expand(rows)), G.to_u64(w))
 
 
-def test_prod_raises_on_what_the_kernel_does_not_take():
+@pytest.mark.parametrize("case", [
+    "no group", "9 groups", "9 columns", "overlap", "past k", "empty group",
+    "17 columns", "halves of two shapes", "rank 1", "int32"])
+def test_prod_raises_on_what_the_kernel_does_not_take(case):
     t = (_t((8, 16), 1), _t((8, 16), 2))
-    for cols in ([], list(range(9)), [16], [-1]):
-        with pytest.raises(ValueError):
-            E.prod(t, cols)
-    with pytest.raises(ValueError):
-        E.prod((t[0], t[1][:, :8]), [0, 1])
-    with pytest.raises(ValueError):
-        E.prod((t[0][0], t[1][0]), [0, 1])
+    groups = [(0, 4)]
+    if case == "no group":
+        groups = []
+    elif case == "9 groups":
+        t = (_t((8, 9), 1), _t((8, 9), 2))
+        groups = [(c, c + 1) for c in range(9)]
+    elif case == "9 columns":
+        groups = [(0, 9)]
+    elif case == "overlap":
+        groups = [(0, 4), (3, 6)]
+    elif case == "past k":
+        groups = [(14, 17)]
+    elif case == "empty group":
+        groups = [(2, 2)]
+    elif case == "17 columns":
+        t = (_t((8, 17), 1), _t((8, 17), 2))
+    elif case == "halves of two shapes":
+        t = (t[0], t[1][:, :8])
+    elif case == "rank 1":
+        t = (t[0][0], t[1][0])
+    else:
+        t = (t[0].to(torch.int32), t[1].to(torch.int32))
+    with pytest.raises((ValueError, TypeError)):
+        E.group_prod(t, groups)
 
 
 def test_every_prover_operand_tuple_gets_a_path(monkeypatch):
@@ -328,7 +485,7 @@ def test_every_prover_operand_tuple_gets_a_path(monkeypatch):
     from tpu_acir_prover_torch.prover.fused import prove_fused
     from tpu_acir_prover_torch.prover.prove import ProvingKey, prove
 
-    seen, prods = {}, {}
+    seen, prods, calls = {}, {}, []
     route, ext_prod = kf._route, kf.ext_prod
 
     def spy(tensors, what):
@@ -336,11 +493,12 @@ def test_every_prover_operand_tuple_gets_a_path(monkeypatch):
         seen.setdefault(key, tuple(tensors))
         return route(tensors, what)
 
-    def prod_spy(t, cols):
-        cols = list(cols)
-        prods.setdefault((tuple(cols), t[0].stride(), t[1].stride()),
-                         (t, cols))
-        return ext_prod(t, cols)
+    def prod_spy(t, groups, allbut=False):
+        groups = [tuple(g) for g in groups]
+        calls.append((tuple(groups), allbut))
+        prods.setdefault((tuple(groups), allbut, t[0].stride(),
+                          t[1].stride()), (t, groups))
+        return ext_prod(t, groups, allbut)
 
     monkeypatch.setattr(kf, "_route", spy)
     monkeypatch.setattr(kf, "ext_prod", prod_spy)
@@ -352,8 +510,13 @@ def test_every_prover_operand_tuple_gets_a_path(monkeypatch):
     cc = compile_circuit(b)
     ext = np.array([200, 31], dtype=np.uint64)
     pk = ProvingKey(cc, TEST_CONFIG, device="cpu")
-    prove(pk, ext)
-    prove_fused(pk, ext)
+    # one grouped product a factor matrix: round 2's two, and in each
+    # quotient chunk (one here) the two permutation ones and the lookup's
+    perm, lk = (tuple(pk.perm_groups), False), (tuple(pk.lk_groups), True)
+    for run in (prove, prove_fused):
+        calls.clear()
+        run(pk, ext)
+        assert calls == [perm, perm, perm, perm, lk]
     prove_sharded(ShardedProvingKey(cc, TEST_CONFIG,
                                     mesh=Mesh.on("cpu", 2)), ext)
     paths = set()
@@ -365,9 +528,12 @@ def test_every_prover_operand_tuple_gets_a_path(monkeypatch):
                 assert len(kf.layout(*tensors)[1]) == 1, key
             paths.add(path)
     assert {"flat", "rows", "tiled"} <= paths
-    assert prods
-    for (cols, _, _), (t, cols) in prods.items():
-        assert 1 <= len(cols) <= kf.PROD_MAX_COLS
-        got = _prod_reads(t, cols)
-        for g, h in zip(got, t):
-            assert torch.equal(g, h[:, cols])
+    assert {(g, a) for g, a, _, _ in prods} == {perm, lk}
+    modes = set()
+    for (groups, _, _, _), (t, _) in prods.items():
+        cols = [c for s, e in groups for c in range(s, e)]
+        for (vals, mode), h in zip(_group_reads(t, groups), t):
+            assert torch.equal(vals, h[:, cols])
+            modes.add(mode)
+    # the permutation's halves and the lookup's real half are staged
+    assert kf.STAGED in modes and kf.BCAST in modes

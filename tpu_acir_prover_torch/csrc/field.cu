@@ -8,7 +8,9 @@
 //   gl_pow_kernel               <- pow_const and inv (a^(p-2)) there
 //   ext_mul_kernel<Path>        <- make_ext's mul,
 //                                  tpu_acir_prover/field/ext.py
-//   ext_prod_kernel             <- a fold of make_ext's mul over columns
+//   ext_prod_kernel<ALLBUT>     <- grouped_fold and _axis_excl_products,
+//                                  tpu_acir_prover/prover/prove.py (a
+//                                  fold of make_ext's mul over columns)
 //   ext_inv_kernel              <- make_ext's inv there
 // Their plain torch twins are field/gl_plain.py and field/ext_plain.py;
 // every output is the twin's, bit for bit.
@@ -71,19 +73,49 @@
 //   thread leaves more threads to hide the latency than FLAT's four, which
 //   were measured slower there (PERF.md).
 //
-// ext_prod multiplies up to PROD_MAX_COLS listed columns of an ext pair
-// of (rows, k) matrices, one thread a row: it loads every listed value of
-// its row from each half in place first (the loads of a row in flight
-// together), then folds them in registers, so no intermediate product
-// reaches device memory, where a fold of ext_mul launches writes and reads
-// back each partial product.  A warp's rows lie 128 bytes apart in a (rows,
-// 16) matrix; its loads of the listed columns fall in the same sectors,
-// which the first load brings into L1, so each sector is read from device
-// memory once.  A block staging its rows' spans in shared memory with
-// 16-byte loads first was measured no faster on the card (PERF.md).  The
-// fold is sequential, not balanced like the twin's; a product mod p is
-// exact and each step's output canonical, so the value, and with it the
-// bits, does not depend on the fold's order.
+// ext_prod computes, in one launch, the product of each of up to
+// GP_MAX_GROUPS groups of columns of an ext pair of (rows, k) matrices, k
+// <= GP_MAX_K, a group 1 to GP_MAX_COLS disjoint columns; with ALLBUT
+// also each group's sum over its columns i of the product of the others
+// (the LogUp constraint's leave-one-out sums; 1 for a group of one), as
+// grouped_fold and _axis_excl_products compute them for all groups at
+// once in tpu_acir_prover/prover/prove.py.  Each output half is a (G,
+// rows) block, so that a group's value is a contiguous (rows,) vector.
+// - A block of GP_ROWS threads takes one tile of GP_ROWS rows, one row a
+//   thread.  A half whose rows are contiguous (column stride 1, row stride
+//   k, 16 bytes aligned) is STAGED: the block first copies its tile of it,
+//   GP_ROWS * k contiguous values, into shared memory by 16-byte cp.async
+//   copies (a warp's copy is 512 contiguous bytes, each value read from
+//   device memory once), then computes from there.  One block's copy
+//   overlaps another's products: an SM holds five.  Persistent blocks that
+//   keep their next tile's copy in flight (two or three buffers, the copies
+//   issued by the computing warps or by a producer warp on mbarriers)
+//   measured slower on the card (PERF.md).
+//   Chunk q of a tile (its values 2q and 2q + 1) lands in slot q ^ ((q >>
+//   3) & 7): at k = 16 the eight rows of a quarter warp, each reading the
+//   same two columns with one 16-byte load, hit eight different 16-byte
+//   bank groups, so a warp reads a column in two wavefronts, the least a
+//   64-bit load can take.  (A pitch of 17 values does that for 8-byte
+//   reads only: its rows do not start on the 16-byte boundaries that a
+//   16-byte copy writes to.)
+// - A half broadcast over rows and columns (both strides 0, the lookup's
+//   imaginary half) is read once a thread, never staged; any other layout
+//   is DIRECT: each value read in place, one thread a row.
+// - A group's product is a running product in registers.  With ALLBUT the
+//   sum S of the leave-one-out products runs beside it: adding a value t
+//   to the values so far (product P) makes S t + P, so a group of L >= 2
+//   columns takes 2 L - 3 ext products with its product, where a prefix x
+//   suffix scan (_axis_excl_products) takes 3 L - 5 and L products of L - 1
+//   columns and the group's take L^2 - L - 1.
+// - An ext product is two sums of two Goldilocks products, each summed in
+//   32-bit limbs and reduced once (gl_dot2; 7 y1 mod p taken once a value,
+//   once a launch for a broadcast half); intermediate values are left in
+//   [0, 2^64), what is written is made canonical.
+// A product mod p is exact and each output canonical, so the bits do not
+// depend on the order of the fold: they are the twin's.  Its bound is
+// bytes, but its integer instructions come close to the copies' time at
+// the permutation's groups and pass it at the lookup's ALLBUT launch; the
+// two only partly overlap (PERF.md).
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() (or cudaErrorInvalidValue for a layout,
@@ -107,8 +139,11 @@ constexpr uint32_t MAX_GRID_YZ = 65535;
 constexpr uint32_t VEC = 4;            // elements a thread but in GENERAL
 constexpr uint32_t TILE = 1024;        // TILED: elements of a tile (2^10),
 constexpr uint32_t MAX_TILE_ROWS = 32; // at most 32 of its rows
-constexpr uint32_t PROD_ROWS = 128;    // ext_prod: rows a block
-constexpr int PROD_MAX_COLS = 8;
+constexpr uint32_t GP_ROWS = 128;      // ext_prod: rows a tile and threads
+                                       // a block
+constexpr int GP_MAX_K = 16;           // columns of its matrices
+constexpr int GP_MAX_GROUPS = 8;
+constexpr int GP_MAX_COLS = 8;         // columns of a group
 
 enum Op { ADD = 0, SUB = 1, MUL = 2 };
 enum Path { FLAT = 0, ROWS = 1, TILED = 2, GENERAL = 3 };
@@ -547,39 +582,260 @@ ext_inv_kernel(const uint64_t* __restrict__ a0,
   }
 }
 
-// ext_prod's halves and columns; see fd_ext_prod.
-struct ProdArgs {
+// ext_prod: how a half is read.
+enum HalfMode { STAGED = 0, DIRECT = 1, BCAST = 2 };
+
+// ext_prod's halves and groups; see fd_ext_prod.
+struct GroupArgs {
+  const uint64_t* half[2];
   int64_t rs[2], cs[2];         // each half's row and column strides
-  int32_t col[PROD_MAX_COLS];   // the listed columns
-  int32_t count;
+  int32_t mode[2];              // HalfMode
+  int32_t k, count;             // columns, groups
+  uint64_t groups;              // byte g: first column | (columns - 1) << 4
 };
 
-// prod over the listed columns j of (re[:, j] + im[:, j] u), one thread a
-// row.
-__global__ void __launch_bounds__(PROD_ROWS)
-ext_prod_kernel(const uint64_t* __restrict__ re,
-                const uint64_t* __restrict__ im, uint64_t* __restrict__ c0,
-                uint64_t* __restrict__ c1, uint32_t n, ProdArgs A) {
-  const uint32_t row = blockIdx.x * PROD_ROWS + threadIdx.x;
-  if (row >= n) return;
-  const uint64_t* const p0 = re + (int64_t)row * A.rs[0];
-  const uint64_t* const p1 = im + (int64_t)row * A.rs[1];
-  // unrolled, so that A.col is read at constant indices (a dynamic index
-  // would copy the arguments to local memory)
-  uint64_t v0[PROD_MAX_COLS], v1[PROD_MAX_COLS];
+// The shared-memory slot of chunk q (values 2q, 2q + 1) of a staged tile:
+// a permutation within each run of eight chunks (see the top of the file).
+__device__ __forceinline__ uint32_t tile_slot(uint32_t q) {
+  return q ^ ((q >> 3) & 7);
+}
+
+// Copies 16 bytes from device memory at src to shared memory at dst
+// without waiting, the first `bytes` of them read and the rest zeros.
+__device__ __forceinline__ void cp_async16(uint64_t* dst, const uint64_t* src,
+                                           uint32_t bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// Waits for this thread's cp.async copies.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The field's sums of products a b + c d (+ e) for any 64-bit inputs, in
+// 32-bit limbs: P2_MUL128 puts a b in t3:t2:t1:t0, then c d (and e) are
+// added by one carry chain into t4:t3:t2:t1:t0 (< 2^130), and one
+// reduction follows, P2_REDUCE128's with the 34 bits (t4:t3) above 2^96
+// where that takes t3 (2^96 = -1): two products and one reduction cost
+// about as much as one product reduced on its own.
+#define P2_DOT2_ACC                          \
+  "mov.b64 {c0, c1}, %3;\n\t"                \
+  "mov.b64 {d0, d1}, %4;\n\t"                \
+  "mad.lo.cc.u32 t0, c0, d0, t0;\n\t"        \
+  "madc.hi.cc.u32 t1, c0, d0, t1;\n\t"       \
+  "madc.lo.cc.u32 t2, c1, d1, t2;\n\t"       \
+  "madc.hi.cc.u32 t3, c1, d1, t3;\n\t"       \
+  "addc.u32 t4, 0, 0;\n\t"                   \
+  "mad.lo.cc.u32 t1, c0, d1, t1;\n\t"        \
+  "madc.hi.cc.u32 t2, c0, d1, t2;\n\t"       \
+  "addc.cc.u32 t3, t3, 0;\n\t"               \
+  "addc.u32 t4, t4, 0;\n\t"                  \
+  "mad.lo.cc.u32 t1, c1, d0, t1;\n\t"        \
+  "madc.hi.cc.u32 t2, c1, d0, t2;\n\t"       \
+  "addc.cc.u32 t3, t3, 0;\n\t"               \
+  "addc.u32 t4, t4, 0;\n\t"
+
+#define P2_REDUCE_WIDE                       \
+  "sub.cc.u32 t0, t0, t3;\n\t"               \
+  "subc.cc.u32 t1, t1, t4;\n\t"              \
+  "subc.u32 c, 0, 0;\n\t"                    \
+  "sub.cc.u32 t0, t0, c;\n\t"                \
+  "subc.u32 t1, t1, 0;\n\t"                  \
+  "sub.cc.u32 e0, 0, t2;\n\t"                \
+  "subc.u32 e1, t2, 0;\n\t"                  \
+  "add.cc.u32 t0, t0, e0;\n\t"               \
+  "addc.cc.u32 t1, t1, e1;\n\t"              \
+  "addc.u32 c, 0, 0;\n\t"                    \
+  "sub.u32 c, 0, c;\n\t"                     \
+  "add.cc.u32 t0, t0, c;\n\t"                \
+  "addc.u32 t1, t1, 0;\n\t"
+
+#define P2_DOT2_REGS \
+  ".reg .u32 a0, a1, b0, b1, c0, c1, d0, d1, t0, t1, t2, t3, t4, e0, e1, c;\n\t"
+
+// a b + c d mod p, in [0, 2^64).
+__device__ __forceinline__ uint64_t gl_dot2(uint64_t a, uint64_t b,
+                                            uint64_t c, uint64_t d) {
+  uint64_t r;
+  asm("{\n\t" P2_DOT2_REGS P2_MUL128 P2_DOT2_ACC P2_REDUCE_WIDE
+      "mov.b64 %0, {t0, t1};\n\t"
+      "}"
+      : "=l"(r) : "l"(a), "l"(b), "l"(c), "l"(d));
+  return r;
+}
+
+// a b + c d + e mod p, in [0, 2^64).
+__device__ __forceinline__ uint64_t gl_dot2_add(uint64_t a, uint64_t b,
+                                                uint64_t c, uint64_t d,
+                                                uint64_t e) {
+  uint64_t r;
+  asm("{\n\t" P2_DOT2_REGS P2_MUL128 P2_DOT2_ACC
+      "mov.b64 {e0, e1}, %5;\n\t"
+      "add.cc.u32 t0, t0, e0;\n\t"
+      "addc.cc.u32 t1, t1, e1;\n\t"
+      "addc.cc.u32 t2, t2, 0;\n\t"
+      "addc.cc.u32 t3, t3, 0;\n\t"
+      "addc.u32 t4, t4, 0;\n\t"
+      P2_REDUCE_WIDE
+      "mov.b64 %0, {t0, t1};\n\t"
+      "}"
+      : "=l"(r) : "l"(a), "l"(b), "l"(c), "l"(d), "l"(e));
+  return r;
+}
+
+// 7 y mod p, in [0, 2^64), for any 64-bit y: 7 y = 8 y - y = lo + hi 2^64
+// with hi < 7, and 2^64 = 2^32 - 1; a carry out of the sum is worth
+// 2^32 - 1 again.  Shifts, where the 64-bit multiply by 7 took five
+// IMAD.WIDE.
+__device__ __forceinline__ uint64_t gl_times7(uint64_t y) {
+  const uint64_t y8 = y << 3, lo = y8 - y;
+  const uint64_t hi = (y >> 61) - (y8 < y);
+  const uint64_t add = (hi << 32) - hi, r = lo + add;
+  return r < lo ? r + EPS : r;
+}
+
+// (x0 + x1 u)(y0 + y1 u) with w1 = 7 y1 mod p given: x0 y0 + x1 w1 and
+// x0 y1 + x1 y0, each half left in [0, 2^64).
+__device__ __forceinline__ void ext_mul_w(uint64_t x0, uint64_t x1,
+                                          uint64_t y0, uint64_t y1,
+                                          uint64_t w1, uint64_t& c0,
+                                          uint64_t& c1) {
+  const uint64_t r0 = gl_dot2(x0, y0, x1, w1);
+  c1 = gl_dot2(x0, y1, x1, y0);
+  c0 = r0;
+}
+
+// Copies the staged halves' rows of the block's tile into their buffers
+// buf[h]: the tile's rows * k values, chunk q (values 2q, 2q + 1) by thread
+// q mod GP_ROWS into slot tile_slot(q); a last chunk with one value left
+// reads 8 bytes and zero-fills the rest.
+__device__ __forceinline__ void stage_tile(const GroupArgs& A,
+                                           uint64_t* const (&buf)[2],
+                                           uint32_t row0, uint32_t n) {
+  const uint32_t words = min(GP_ROWS, n - row0) * (uint32_t)A.k;
 #pragma unroll
-  for (int j = 0; j < PROD_MAX_COLS; ++j) {
-    if (j < A.count) {
-      v0[j] = ld(p0 + (int64_t)A.col[j] * A.cs[0]);
-      v1[j] = ld(p1 + (int64_t)A.col[j] * A.cs[1]);
+  for (int h = 0; h < 2; ++h) {
+    if (A.mode[h] != STAGED) continue;
+    const uint64_t* src = A.half[h] + (int64_t)row0 * A.k;
+    for (uint32_t q = threadIdx.x; 2 * q < words; q += GP_ROWS)
+      cp_async16(buf[h] + 2 * tile_slot(q), src + 2 * q,
+                 2 * q + 1 < words ? 16 : 8);
+  }
+}
+
+// Half H's values of columns c0 .. c0 + len - 1 of the thread's row: local
+// row r of the staged tile `tile`, or row `row` in place.  A staged value
+// (r, c) is value f = r k + c of the tile: in slot tile_slot(f >> 1), at f
+// & 1 within it.  At an even k two neighbouring columns from an even f
+// are one 16-byte load.
+template <int H>
+__device__ __forceinline__ void load_group(const GroupArgs& A,
+                                           const uint64_t* tile, uint64_t b,
+                                           uint32_t r, uint32_t row, int c0,
+                                           int len,
+                                           uint64_t (&v)[GP_MAX_COLS]) {
+  if (A.mode[H] == BCAST) {
+#pragma unroll
+    for (int i = 0; i < GP_MAX_COLS; ++i) v[i] = b;
+  } else if (A.mode[H] == DIRECT) {
+    const uint64_t* p =
+        A.half[H] + (int64_t)row * A.rs[H] + (int64_t)c0 * A.cs[H];
+#pragma unroll
+    for (int i = 0; i < GP_MAX_COLS; ++i)
+      if (i < len) v[i] = ld(p + (int64_t)i * A.cs[H]);
+  } else {
+    const uint32_t f0 = r * (uint32_t)A.k + (uint32_t)c0;
+    const bool pairs = (A.k & 1) == 0;
+#pragma unroll
+    for (int i = 0; i < GP_MAX_COLS; ++i) {
+      if (i >= len) continue;
+      const uint32_t f = f0 + i;
+      const uint64_t* q = tile + 2 * tile_slot(f >> 1);
+      if (pairs && (f & 1) == 0 && i + 1 < len) {
+        const ulonglong2 x = *reinterpret_cast<const ulonglong2*>(q);
+        v[i] = x.x;
+        if (i + 1 < GP_MAX_COLS) v[i + 1] = x.y;
+      } else if (!(pairs && i > 0 && (f & 1) == 1)) {
+        v[i] = q[f & 1];      // not the second value of a pair
+      }
     }
   }
-  uint64_t x0 = v0[0], x1 = v1[0];
+}
+
+// A group's product (p0, p1) of its len values t_i = v0 + v1 u (w1 = 7 v1
+// mod p) and, with ALLBUT, the sum (s0, s1) over i of the product of all
+// values but t_i; all canonical.  Over the first i values, with P their
+// product and S that sum, adding t_i makes S t_i + P and P t_i: 2 len - 3
+// ext products for len >= 2 (two sums of two products each, the + P
+// folded into one of them before its reduction).
+template <bool ALLBUT>
+__device__ __forceinline__ void group_values(const uint64_t (&v0)[GP_MAX_COLS],
+                                             const uint64_t (&v1)[GP_MAX_COLS],
+                                             const uint64_t (&w1)[GP_MAX_COLS],
+                                             int len, uint64_t& p0,
+                                             uint64_t& p1, uint64_t& s0,
+                                             uint64_t& s1) {
+  uint64_t x0 = v0[0], x1 = v1[0], y0 = 1, y1 = 0;   // P and S
 #pragma unroll
-  for (int j = 1; j < PROD_MAX_COLS; ++j)
-    if (j < A.count) ext_mul(x0, x1, v0[j], v1[j], x0, x1);
-  c0[row] = x0;
-  c1[row] = x1;
+  for (int i = 1; i < GP_MAX_COLS; ++i) {
+    if (i >= len) continue;
+    if (ALLBUT && i == 1) {
+      y0 = gl_add(v0[0], v0[1]), y1 = gl_add(v1[0], v1[1]);
+    } else if (ALLBUT) {
+      const uint64_t r0 = gl_dot2_add(y0, v0[i], y1, w1[i], x0);
+      y1 = gl_dot2_add(y0, v1[i], y1, v0[i], x1);
+      y0 = r0;
+    }
+    ext_mul_w(x0, x1, v0[i], v1[i], w1[i], x0, x1);
+  }
+  p0 = canon(x0), p1 = canon(x1);
+  s0 = canon(y0), s1 = canon(y1);
+}
+
+// out: the (1 + ALLBUT, 2, A.count, n) products (and sums), re then im.
+// A block takes one tile of GP_ROWS rows: it stages the tile, then each
+// thread computes one row of it.
+template <bool ALLBUT>
+__global__ void __launch_bounds__(GP_ROWS)
+ext_prod_kernel(const GroupArgs A, uint64_t* __restrict__ out, uint32_t n) {
+  extern __shared__ __align__(16) uint64_t smem[];
+  const uint32_t row0 = blockIdx.x * GP_ROWS, r = threadIdx.x;
+  uint64_t* const tile[2] = {
+      smem, smem + (A.mode[0] == STAGED ? GP_ROWS * (uint32_t)A.k : 0)};
+  if (A.mode[0] == STAGED || A.mode[1] == STAGED) {
+    stage_tile(A, tile, row0, n);
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  const uint32_t row = row0 + r;
+  if (row >= n) return;
+  const uint64_t b0 = A.mode[0] == BCAST ? ld(A.half[0]) : 0;
+  const uint64_t b1 = A.mode[1] == BCAST ? ld(A.half[1]) : 0;
+  const uint64_t w1b = gl_times7(b1);
+  const int64_t block = (int64_t)A.count * n;
+#pragma unroll 1
+  for (int g = 0; g < A.count; ++g) {
+    const uint32_t byte = (uint32_t)(A.groups >> (8 * g)) & 0xFF;
+    const int c0 = byte & 15, len = (byte >> 4) + 1;
+    uint64_t v0[GP_MAX_COLS], v1[GP_MAX_COLS], w1[GP_MAX_COLS];
+    load_group<0>(A, tile[0], b0, r, row, c0, len, v0);
+    load_group<1>(A, tile[1], b1, r, row, c0, len, v1);
+#pragma unroll
+    for (int i = 1; i < GP_MAX_COLS; ++i)
+      if (i < len) w1[i] = A.mode[1] == BCAST ? w1b : gl_times7(v1[i]);
+    uint64_t p0, p1, s0, s1;
+    group_values<ALLBUT>(v0, v1, w1, len, p0, p1, s0, s1);
+    uint64_t* o = out + (int64_t)g * n + row;
+    o[0] = p0;
+    o[block] = p1;
+    if (ALLBUT) {
+      o[2 * block] = s0;
+      o[3 * block] = s1;
+    }
+  }
 }
 
 // A launch's description from the caller's int64 array:
@@ -717,28 +973,56 @@ int fd_ext_inv(const void* a0, const void* a1, void* c0, void* c1,
   return (int)cudaGetLastError();
 }
 
-// (c0, c1)[r] = prod over the listed columns j of (re, im)[r, j] for r <
-// n rows.  desc: [n, count, rs_re, cs_re, rs_im, cs_im, cols[count]].
-int fd_ext_prod(const void* re, const void* im, void* c0, void* c1,
+// For each group g of columns of the ext pair (re, im) of (n, k) matrices,
+// the product of its columns into out[0][.][g] and, with allbut, the sum of
+// its leave-one-out products into out[1][.][g]: out is (1 + allbut, 2,
+// count, n), re halves before im.  desc: [n, k, count, allbut, mode_re,
+// rs_re, cs_re, mode_im, rs_im, cs_im, groups], modes and groups as
+// GroupArgs' (a staged half: column stride 1, row stride k, 16-byte
+// aligned; a broadcast half: strides 0); groups disjoint, inside k.
+int fd_ext_prod(const void* re, const void* im, void* out,
                 const int64_t* desc, void* stream) {
   const int64_t n = desc[0];
-  ProdArgs A;
-  A.count = (int32_t)desc[1];
-  if (n < 1 || n >= MAX_ELEMENTS || A.count < 1 || A.count > PROD_MAX_COLS)
+  GroupArgs A;
+  A.k = (int32_t)desc[1];
+  A.count = (int32_t)desc[2];
+  const bool allbut = desc[3] != 0;
+  if (n < 1 || n >= MAX_ELEMENTS || A.k < 1 || A.k > GP_MAX_K ||
+      A.count < 1 || A.count > GP_MAX_GROUPS)
     return BAD_LAYOUT;
-  const int64_t* d = desc + 2;
+  A.half[0] = (const uint64_t*)re;
+  A.half[1] = (const uint64_t*)im;
   for (int h = 0; h < 2; ++h) {
-    A.rs[h] = *d++;
-    A.cs[h] = *d++;
+    A.mode[h] = (int32_t)desc[4 + 3 * h];
+    A.rs[h] = desc[5 + 3 * h];
+    A.cs[h] = desc[6 + 3 * h];
+    const bool ok =
+        (A.mode[h] == STAGED && A.cs[h] == 1 && A.rs[h] == A.k &&
+         (reinterpret_cast<uintptr_t>(A.half[h]) & 15) == 0) ||
+        (A.mode[h] == BCAST && A.rs[h] == 0 && A.cs[h] == 0) ||
+        A.mode[h] == DIRECT;
+    if (!ok) return BAD_LAYOUT;
   }
-  for (int j = 0; j < PROD_MAX_COLS; ++j) {
-    A.col[j] = j < A.count ? (int32_t)*d++ : 0;
-    if (A.col[j] < 0) return BAD_LAYOUT;
+  A.groups = (uint64_t)desc[10];
+  uint32_t used = 0;
+  for (int g = 0; g < GP_MAX_GROUPS; ++g) {
+    const uint32_t byte = (uint32_t)(A.groups >> (8 * g)) & 0xFF;
+    if (g >= A.count) {
+      if (byte) return BAD_LAYOUT;
+      continue;
+    }
+    const int c0 = byte & 15, len = (byte >> 4) + 1;
+    const uint32_t cols = ((1u << len) - 1) << c0;
+    if (byte > 0x7F || c0 + len > A.k || (used & cols)) return BAD_LAYOUT;
+    used |= cols;
   }
-  const unsigned blocks = (unsigned)((n + PROD_ROWS - 1) / PROD_ROWS);
-  ext_prod_kernel<<<blocks, PROD_ROWS, 0, (cudaStream_t)stream>>>(
-      (const uint64_t*)re, (const uint64_t*)im, (uint64_t*)c0,
-      (uint64_t*)c1, (uint32_t)n, A);
+  const int staged = (A.mode[0] == STAGED) + (A.mode[1] == STAGED);
+  const size_t smem = (size_t)staged * GP_ROWS * A.k * 8;
+  // at most 2 halves x GP_ROWS x GP_MAX_K values: 32 KiB, under the 48 KiB
+  // a launch may take without asking
+  const auto kernel = allbut ? ext_prod_kernel<true> : ext_prod_kernel<false>;
+  kernel<<<(unsigned)((n + GP_ROWS - 1) / GP_ROWS), GP_ROWS, smem,
+           (cudaStream_t)stream>>>(A, (uint64_t*)out, (uint32_t)n);
   return (int)cudaGetLastError();
 }
 

@@ -2,10 +2,10 @@
 
 Counterpart of ``make_ext`` in ``tpu_acir_prover/field/ext.py``; the host
 scalar ops ``e_add`` .. ``e_pow`` on python-int pairs are copies of that
-module's.  ``mul``, ``inv`` and ``prod`` go through ``kernels/field.py``:
-CUDA tensors to ``ext_mul_kernel`` / ``ext_inv_kernel`` /
-``ext_prod_kernel``, CPU tensors to their plain twins in
-``field/ext_plain.py``; the other ops are built on those and on
+module's.  ``mul``, ``inv`` and ``group_prod`` go through
+``kernels/field.py``: CUDA tensors to ``ext_mul_kernel`` /
+``ext_inv_kernel`` / ``ext_prod_kernel``, CPU tensors to their plain twins
+in ``field/ext_plain.py``; the other ops are built on those and on
 ``field/gl.py``'s.
 """
 
@@ -57,10 +57,13 @@ def inv(x):
     return _kf.ext_inv(x)
 
 
-def prod(t, cols):
-    """The product over ``cols`` (at most 8) of column j of the ext pair
-    ``t`` of (rows, k) tensors, as (rows,) ext values."""
-    return _kf.ext_prod(t, cols)
+def group_prod(t, groups, allbut=False):
+    """For each (start, end) of ``groups`` (at most 8 disjoint ranges of at
+    most 8 columns), the product of those columns of the ext pair ``t`` of
+    (rows, k <= 16) tensors as (rows,) ext values; with ``allbut``
+    (products, sums), each sum over a group's columns i of the product of
+    the others (1 for one column)."""
+    return _kf.ext_prod(t, groups, allbut)
 
 
 def pow_const(x, e: int):

@@ -14,9 +14,10 @@ contiguous tensors of the broadcast shape:
   pairs, one ``ext_mul_kernel`` / ``ext_inv_kernel`` launch writing both
   halves (``field/ext.py``'s ``mul`` and ``inv``).
 
-``ext_prod`` multiplies listed columns of an ext pair of ``(rows, k)``
-matrices into ``(rows,)`` ext values in one ``ext_prod_kernel`` launch
-(``field/ext.py``'s ``prod``).
+``ext_prod`` multiplies the columns of each group of columns of an ext pair
+of ``(rows, k)`` matrices into ``(rows,)`` ext values, and with ``allbut``
+sums each group's leave-one-out products, all groups in one
+``ext_prod_kernel`` launch (``field/ext.py``'s ``group_prod``).
 
 Operands are passed by address with the sizes and strides of their
 broadcast views (``layout``), so broadcast rows and columns, 0-d constants
@@ -55,8 +56,12 @@ THREADS = 256                     # threads a block but in ext_prod
 VEC = 4                           # elements a thread but in general
 TILE, MAX_TILE_ROWS = 1024, 32    # tiled: elements of a tile, its rows
 MAX_GRID_YZ = 65535
-PROD_ROWS = 128                   # ext_prod: rows a block
-PROD_MAX_COLS = 8
+GP_ROWS = 128                     # ext_prod: rows a tile, threads a block
+GP_MAX_K = 16                     # columns of its matrices
+GP_MAX_GROUPS = 8
+GP_MAX_COLS = 8                   # columns of a group
+STAGED, DIRECT, BCAST = range(3)  # how ext_prod reads a half
+HALF_MODES = ("staged", "direct", "broadcast")
 FLAT, ROWS, TILED, GENERAL = range(4)
 PATHS = ("flat", "rows", "tiled", "general")
 ROWS_TX = 64                      # rows: most threads along the run
@@ -74,8 +79,9 @@ _arrays = {}
 class Launch(NamedTuple):
     """A launch's layout and plan: ``sizes`` and per-operand ``strides``
     (``layout``'s; for ext_prod the (rows, k) and the strides of each
-    half), its ``path`` (one of ``PATHS``, or "prod"), ``desc``, the int64
-    array the library reads them from, and ext_prod's ``cols``."""
+    half), its ``path`` (one of ``PATHS``; for ext_prod each half's
+    ``HALF_MODES`` joined by "/"), ``desc``, the int64 array the library
+    reads them from, and ext_prod's ``cols``: (its groups, allbut)."""
     sizes: tuple
     strides: tuple
     path: str
@@ -109,7 +115,7 @@ def _load():
     lib.fd_gl_pow.argtypes = [vp, ctypes.c_uint64, vp, vp, vp]
     lib.fd_ext_mul.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp]
     lib.fd_ext_inv.argtypes = [vp, vp, vp, vp, vp, vp]
-    lib.fd_ext_prod.argtypes = [vp, vp, vp, vp, vp, vp]
+    lib.fd_ext_prod.argtypes = [vp, vp, vp, vp, vp]
     for fn in (lib.fd_gl_binary, lib.fd_gl_pow, lib.fd_ext_mul,
                lib.fd_ext_inv, lib.fd_ext_prod):
         fn.restype = ci
@@ -329,34 +335,76 @@ def ext_inv(x):
     return (c0, c1)
 
 
-def ext_prod(t, cols):
-    """prod over ``cols`` (1 to PROD_MAX_COLS column indices) of column j
-    of the ext pair ``t`` of (rows, k) tensors: a (rows,) ext value.  One
-    ``ext_prod_kernel`` launch; one column is returned as its views, as the
-    twin does."""
+def tile_slot(q: int) -> int:
+    """The shared-memory slot of chunk q (values 2q, 2q + 1) of a tile that
+    ext_prod stages, as ``tile_slot`` in ``csrc/field.cu``."""
+    return q ^ ((q >> 3) & 7)
+
+
+def half_mode(h, k: int) -> int:
+    """How ext_prod reads the half ``h`` of a (rows, k) pair: STAGED for
+    contiguous rows (column stride 1, row stride k) at a 16-byte aligned
+    address, BCAST for strides (0, 0), else DIRECT."""
+    rs, cs = h.stride()
+    if rs == 0 and cs == 0:
+        return BCAST
+    if cs == 1 and rs == k and h.data_ptr() % 16 == 0:
+        return STAGED
+    return DIRECT
+
+
+def groups_of(groups, k: int) -> list:
+    """``groups`` as a list of (start, end) column ranges, checked as the
+    kernel takes them: 1 to GP_MAX_GROUPS disjoint ranges of 1 to
+    GP_MAX_COLS columns inside [0, k)."""
+    groups = [(int(s), int(e)) for s, e in groups]
+    if not 1 <= len(groups) <= GP_MAX_GROUPS:
+        raise ValueError(f"ext_prod: {len(groups)} groups, 1 to "
+                         f"{GP_MAX_GROUPS}")
+    used = set()
+    for s, e in groups:
+        cols = set(range(s, e))
+        if not (0 <= s < e <= k and e - s <= GP_MAX_COLS) or used & cols:
+            raise ValueError(f"ext_prod: groups {groups} are not disjoint "
+                             f"ranges of 1 to {GP_MAX_COLS} of {k} columns")
+        used |= cols
+    return groups
+
+
+def ext_prod(t, groups, allbut: bool = False):
+    """For each (start, end) of ``groups``, the product of those columns of
+    the ext pair ``t`` of (rows, k) tensors, as (rows,) ext values; with
+    ``allbut`` also each group's sum over its columns i of the product of
+    the others (1 for a group of one column), returned as (products,
+    sums).  One ``ext_prod_kernel`` launch for all groups; each half of
+    the products (and of the sums) is one (groups, rows) block."""
     re, im = t
-    cols = [int(c) for c in cols]
-    if not 1 <= len(cols) <= PROD_MAX_COLS:
-        raise ValueError(f"ext_prod: {len(cols)} columns, 1 to "
-                         f"{PROD_MAX_COLS}")
     if re.dim() != 2 or re.shape != im.shape:
         raise ValueError(f"ext_prod: halves of shapes {tuple(re.shape)} "
                          f"and {tuple(im.shape)}, not one (rows, k)")
     rows, k = re.shape
-    if not all(0 <= c < k for c in cols):
-        raise ValueError(f"ext_prod: columns {cols} of {k}")
+    if not 1 <= k <= GP_MAX_K:
+        raise ValueError(f"ext_prod: {k} columns, 1 to {GP_MAX_K}")
+    groups = groups_of(groups, k)
     if not _route(t, "ext_prod"):
-        return ext_plain.prod(t, cols)
-    if len(cols) == 1:
-        return (re[:, cols[0]], im[:, cols[0]])
+        return ext_plain.group_prod(t, groups, allbut)
     if rows >= MAX_ELEMENTS:
         raise ValueError(f"ext_prod: {rows} rows, at most 2^31 - 1")
-    c0 = torch.empty(rows, dtype=torch.int64, device=re.device)
-    c1 = torch.empty_like(c0)
+    out = torch.empty((1 + bool(allbut), 2, len(groups), rows),
+                      dtype=torch.int64, device=re.device)
     if rows:
-        strides = (re.stride(), im.stride())
-        desc = _int64s([rows, len(cols), *strides[0], *strides[1], *cols])
+        modes = [half_mode(h, k) for h in t]
+        packed = sum((s | (e - s - 1) << 4) << (8 * g)
+                     for g, (s, e) in enumerate(groups))
+        desc = _int64s([rows, k, len(groups), int(bool(allbut)),
+                        modes[0], *re.stride(), modes[1], *im.stride(),
+                        packed])
         _launch("ext_prod", _load().fd_ext_prod, re.device,
-                Launch((rows, k), strides, "prod", desc, tuple(cols)),
-                re.data_ptr(), im.data_ptr(), c0.data_ptr(), c1.data_ptr())
-    return (c0, c1)
+                Launch((rows, k), (re.stride(), im.stride()),
+                       "/".join(HALF_MODES[m] for m in modes), desc,
+                       (tuple(groups), bool(allbut))),
+                re.data_ptr(), im.data_ptr(), out.data_ptr())
+    prods = [(out[0, 0, g], out[0, 1, g]) for g in range(len(groups))]
+    if not allbut:
+        return prods
+    return prods, [(out[1, 0, g], out[1, 1, g]) for g in range(len(groups))]

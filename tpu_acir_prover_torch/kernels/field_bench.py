@@ -6,7 +6,9 @@ that launch them, for one checkout of the package.
 Run it by path with another checkout first on ``PYTHONPATH`` to measure
 that checkout's kernels (it uses only the wrappers that checkout has:
 ``add``, ``sub``, ``mul``, ``pow_const``, ``ext_mul``, ``ext_inv``, and
-``ext_prod`` where there is one, else its fold of ``ext_mul`` launches):
+``ext_prod``: the grouped one where there is one, else one launch a group
+and a leave-one-out product, as that checkout's prover made them, else a
+fold of ``ext_mul`` launches):
 
     PYTHONPATH=<checkout> python tpu_acir_prover_torch/kernels/field_bench.py
 
@@ -16,7 +18,11 @@ card's name and power limit, and writes them all to ``--out`` (default
 
 - ``kernel``: each field op at the main path's shapes and at the largest
   recorded layout of the classes that were furthest below their bound, by
-  ``device_ms``: the kernels' device time per call;
+  ``device_ms``: the kernels' device time per call; the grouped products
+  also with their bound and its share, and apart: their products alone
+  (both halves broadcast) and their copies alone (groups of one column);
+- ``sass``: the SASS instructions of one Goldilocks product and of each
+  ``ext_prod_kernel`` instance (``cuobjdump -sass``);
 - ``host``: each wrapper's host time per call, back to back without a
   synchronisation, at small shapes (the median of HOST_BATCHES rounds);
 - ``proof``: the 2^17-row ECDSA circuit's warm per-phase proof (median of
@@ -57,6 +63,16 @@ METHODS = ("device time of a launch in a replayed graph under "
            "L2 evicted before each (the profiler saw no launch)")
 HOST_CALLS = 200
 HOST_BATCHES = 9
+# the card's rates for a bound (NVIDIA H100 SXM): device memory, and 32-bit
+# multiply-adds (132 SMs x 64 a clock at 1.98 GHz)
+BYTES_PER_S = 3.35e12
+MADDS_PER_S = 132 * 64 * 1.98e9
+PERM_GROUPS = ((0, 6), (6, 12), (12, 16))       # circuit/builder.py's
+LOOKUP_GROUPS = ((0, 4), (4, 8), (8, 12), (12, 16))
+# a grouped product's two halves of the work apart: the products with
+# nothing to copy (both halves broadcast), the copies with nothing to
+# multiply (groups of one column)
+ONE_COLUMNS = ((0, 1), (6, 7), (12, 13))
 
 
 def device_ms(call, kernels=FIELD_KERNELS, reps=GRAPH_REPS):
@@ -150,6 +166,64 @@ def device_totals(prof, kernels=FIELD_KERNELS):
     return total_us, total_n, ours, dict(paths)
 
 
+def sass_counts():
+    """{kernel's mangled name: [IMAD-class, all] SASS instructions} of the
+    field library, by the toolkit's ``cuobjdump -sass``."""
+    from pathlib import Path
+
+    from tpu_acir_prover_torch.kernels import field as kf
+    from tpu_acir_prover_torch.kernels import nvcc
+    tool = Path(nvcc.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(kf.build())],
+                          capture_output=True, text=True, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = line.split("Function :", 1)[1].strip()
+            counts[cur] = [0, 0]
+        elif cur and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[cur][1] += 1
+            counts[cur][0] += "IMAD" in line
+    return counts
+
+
+def sass_per_product(counts=None):
+    """(IMAD-class, all) SASS instructions of one Goldilocks product in the
+    field library: gl_binary_kernel<MUL, GENERAL> less gl_binary_kernel<ADD,
+    GENERAL> (the same kernel, one element a thread, but for the op)."""
+    counts = counts or sass_counts()
+
+    def of(op):
+        general = PATHS.index("general")
+        names = [k for k in counts
+                 if f"gl_binary_kernelILi{op}ELi{general}EE" in k]
+        if len(names) != 1:
+            raise AssertionError(f"gl_binary_kernel<{op}> in the SASS: "
+                                 f"{names}")
+        return counts[names[0]]
+
+    (mi, ma), (ai, aa) = of(2), of(0)
+    return mi - ai, ma - aa
+
+
+def group_bound_ms(rows, groups, allbut, broadcast_im, per_product):
+    """(bound_ms, bound_by) of ext_prod over (rows, 16) halves: each half's
+    groups' columns read once (a broadcast half one value), each output
+    written once, over the memory rate; or its ext products (a running
+    product, with ``allbut`` the leave-one-out sum beside it: 2 L - 3 for
+    L columns) of 4 Goldilocks products of ``per_product`` multiply-adds,
+    over their rate."""
+    cols = sum(e - s for s, e in groups)
+    nbytes = 8 * rows * cols * (1 if broadcast_im else 2) + \
+        8 * broadcast_im + (1 + allbut) * 2 * len(groups) * 8 * rows
+    ext = sum(0 if e - s == 1 else 2 * (e - s) - 3 if allbut else e - s - 1
+              for s, e in groups)
+    ops_ms = rows * ext * 4 * per_product / MADDS_PER_S * 1e3
+    bytes_ms = nbytes / BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms > bytes_ms else \
+        (bytes_ms, "bytes")
+
+
 def replay_profile(run):
     """One ``run()`` (a replay) under torch.profiler: (device operations,
     device ms, {field kernel: [launches, device ms]})."""
@@ -180,7 +254,30 @@ def _cases(rng, dev):
     def view(sizes, strides, base):
         return torch.as_strided(base, sizes, strides)
 
-    def group(t, cols):
+    def group(t, groups, allbut=False):
+        """The grouped products (and leave-one-out sums) as a flat list of
+        ext values, as this checkout's prover computes them."""
+        if hasattr(kf, "GP_ROWS"):
+            out = kf.ext_prod(t, groups, allbut)
+            return [v for pairs in (out if allbut else (out,))
+                    for v in pairs]
+        prods = [prod(t, list(range(s, e))) for s, e in groups]
+        if not allbut:
+            return prods
+        sums = []
+        for s, e in groups:
+            cols = list(range(s, e))
+            terms = [prod(t, cols[:i] + cols[i + 1:])
+                     for i in range(len(cols))]
+            while len(terms) > 1:
+                terms = [(kf.add(terms[i][0], terms[i + 1][0]),
+                          kf.add(terms[i][1], terms[i + 1][1]))
+                         if i + 1 < len(terms) else terms[i]
+                         for i in range(0, len(terms), 2)]
+            sums.append(terms[0])
+        return prods + sums
+
+    def prod(t, cols):
         if hasattr(kf, "ext_prod"):
             return kf.ext_prod(t, cols)
         items = [(t[0][:, c], t[1][:, c]) for c in cols]
@@ -189,12 +286,40 @@ def _cases(rng, dev):
                      else items[i] for i in range(0, len(items), 2)]
         return items[0]
 
+    def group_twin(t, groups, allbut=False):
+        """The grouped products and sums by their definition, from the
+        plain twins that every checkout has."""
+        def product(items):
+            out = items[0]
+            for x in items[1:]:
+                out = ext_plain.mul(out, x)
+            return out
+
+        cols = [[(t[0][:, c], t[1][:, c]) for c in range(s, e)]
+                for s, e in groups]
+        out = [product(items) for items in cols]
+        for items in cols if allbut else ():
+            terms = [product(items[:i] + items[i + 1:]) for i in
+                     range(len(items))] if len(items) > 1 else \
+                [(torch.ones_like(items[0][0]), torch.zeros_like(items[0][0]))]
+            total = terms[0]
+            for x in terms[1:]:
+                total = (gl_plain.add(total[0], x[0]),
+                         gl_plain.add(total[1], x[1]))
+            out.append(total)
+        return out
+
+    def flat(x):
+        if isinstance(x, list):
+            return [v for pair in x for v in pair]
+        return x if isinstance(x, tuple) else (x,)
+
     def checked(call, twin):
-        got, want = call(), twin()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
+        got, want = flat(call()), flat(twin())
+        if len(got) != len(want):
+            raise AssertionError("kernel and plain twin differ in outputs")
         for g, w in zip(got, want):
-            if not torch.equal(g, w):
+            if not torch.equal(g, w.expand_as(g)):
                 raise AssertionError("kernel differs from the plain twin")
         return call
 
@@ -211,6 +336,10 @@ def _cases(rng, dev):
     o1, o2 = pool((1 << 20,)), pool((16,))
     e16 = [col(1 << 17, 16) for _ in range(4)]
     lk = (col(1 << 17, 16), field_input(rng, (), dev).expand(1 << 17, 16))
+    p17 = (col(1 << 17, 16), col(1 << 17, 16))
+    p18 = (col(1 << 18, 16), col(1 << 18, 16))
+    lk18 = (col(1 << 18, 16), field_input(rng, (), dev).expand(1 << 18, 16))
+    bc18 = (lk18[1], field_input(rng, (), dev).expand(1 << 18, 16))
     inv18 = pool((1 << 18,))
     cases = [
         ("gl_binary mul (2^20, 43) x (2^20, 1) [rows]",
@@ -246,23 +375,34 @@ def _cases(rng, dev):
          lambda: ext_plain.mul((e16[0][:, 3], e16[1][:, 3]),
                                (e16[2][:, 5], e16[3][:, 5]))),
         ("ext group product, (2^17, 16) pair, columns 0-5 (ext_prod, or a "
-         "fold of ext_mul)", lambda: group((e16[0], e16[1]), range(6)),
-         lambda: ext_plain.mul(ext_plain.mul(
-             ext_plain.mul((e16[0][:, 0], e16[1][:, 0]),
-                           (e16[0][:, 1], e16[1][:, 1])),
-             ext_plain.mul((e16[0][:, 2], e16[1][:, 2]),
-                           (e16[0][:, 3], e16[1][:, 3]))),
-             ext_plain.mul((e16[0][:, 4], e16[1][:, 4]),
-                           (e16[0][:, 5], e16[1][:, 5])))),
-        ("ext group product, (2^17, 16) pair, lam1 broadcast, columns 0-2",
-         lambda: group(lk, range(3)),
-         lambda: ext_plain.mul(ext_plain.mul(
-             (lk[0][:, 0], lk[1][:, 0]), (lk[0][:, 1], lk[1][:, 1])),
-             (lk[0][:, 2], lk[1][:, 2]))),
+         "fold of ext_mul)", lambda: group((e16[0], e16[1]), [(0, 6)]),
+         lambda: group_twin((e16[0], e16[1]), [(0, 6)])),
+        ("ext grouped products, (2^17, 16) pair, groups 0-5, 6-11, 12-15: "
+         "round 2's permutation", lambda: group(p17, PERM_GROUPS),
+         lambda: group_twin(p17, PERM_GROUPS)),
+        ("ext grouped products, (2^18, 16) pair, groups 0-5, 6-11, 12-15: "
+         "a quotient chunk's permutation", lambda: group(p18, PERM_GROUPS),
+         lambda: group_twin(p18, PERM_GROUPS)),
+        ("ext grouped products and leave-one-out sums, (2^18, 16) pair, lam1 "
+         "broadcast, 4 groups of 4: a quotient chunk's LogUp",
+         lambda: group(lk18, LOOKUP_GROUPS, True),
+         lambda: group_twin(lk18, LOOKUP_GROUPS, True)),
+        ("ext grouped products, products only: (2^18, 16) pair, both halves "
+         "broadcast, groups 0-5, 6-11, 12-15",
+         lambda: group(bc18, PERM_GROUPS), lambda: group_twin(bc18,
+                                                              PERM_GROUPS)),
+        ("ext grouped products, copies only: (2^18, 16) pair, groups of one "
+         "column 0, 6, 12", lambda: group(p18, ONE_COLUMNS),
+         lambda: group_twin(p18, ONE_COLUMNS)),
         ("ext_inv (2^17, 16), im broadcast", lambda: kf.ext_inv(lk),
          lambda: ext_plain.inv(lk)),
     ]
-    return [(name, checked(call, twin)) for name, call, twin in cases]
+    bounds = {cases[-7][0]: (1 << 17, ((0, 6),), False, False),
+              cases[-6][0]: (1 << 17, PERM_GROUPS, False, False),
+              cases[-5][0]: (1 << 18, PERM_GROUPS, False, False),
+              cases[-4][0]: (1 << 18, LOOKUP_GROUPS, True, True)}
+    return [(name, checked(call, twin), bounds.get(name))
+            for name, call, twin in cases]
 
 
 def host_us(rng, dev):
@@ -282,7 +422,9 @@ def host_us(rng, dev):
              "pow_const inv": lambda: kf.pow_const(a, gl_plain.P - 2),
              "ext_mul": lambda: kf.ext_mul((a, b), (b, a)),
              "ext_inv": lambda: kf.ext_inv((a, b))}
-    if hasattr(kf, "ext_prod"):
+    if hasattr(kf, "GP_ROWS"):
+        calls["ext_prod 6 columns"] = lambda: kf.ext_prod((m, m), [(0, 6)])
+    elif hasattr(kf, "ext_prod"):
         calls["ext_prod 6 columns"] = lambda: kf.ext_prod((m, m), range(6))
     rounds = {name: [] for name in calls}
     for call in calls.values():
@@ -348,9 +490,20 @@ def main(argv=None):
         rows.append(rec)
         print(json.dumps(rec), flush=True)
 
-    for name, call in _cases(rng, dev):
+    counts = sass_counts()
+    per_product, instructions = sass_per_product(counts)
+    emit({"sass": {"goldilocks_product": [per_product, instructions],
+                   **{k: v for k, v in counts.items()
+                      if "ext_prod_kernel" in k}},
+          "unit": "[IMAD-class, all] SASS instructions"})
+    for name, call, shape in _cases(rng, dev):
         ms, method = device_ms(call)
-        emit({"kernel": name, "device_ms": ms, "ms_method": method})
+        rec = {"kernel": name, "device_ms": ms, "ms_method": method}
+        if shape:
+            rec["bound_ms"], rec["bound_by"] = group_bound_ms(*shape,
+                                                             per_product)
+            rec["share_of_bound"] = rec["bound_ms"] / ms
+        emit(rec)
     torch.cuda.empty_cache()
     emit({"host": host_us(rng, dev),
           "unit": "us per call"})

@@ -142,7 +142,7 @@ def gate_eval(q, w):
 def perm_group_products(wires, sigmas, x, k, beta, gamma, groups):
     """Per-group products (N_g, D_g) of the permutation factors
     (w_i + beta k_i x + gamma) and (w_i + beta sigma_i + gamma), as lists of
-    (rows,) ext values."""
+    (rows,) ext values: one grouped product a factor matrix."""
     kx = gl.mul(x[:, None], k[None, :])
 
     def factors(second):
@@ -150,9 +150,7 @@ def perm_group_products(wires, sigmas, x, k, beta, gamma, groups):
                 gl.add(gl.mul(beta[1], second), gamma[1]))
 
     f_num, f_den = factors(kx), factors(sigmas)
-    nums = [E.prod(f_num, range(s, e)) for s, e in groups]
-    dens = [E.prod(f_den, range(s, e)) for s, e in groups]
-    return nums, dens
+    return E.group_prod(f_num, groups), E.group_prod(f_den, groups)
 
 
 def lookup_factors(wires, lam):
@@ -448,16 +446,13 @@ class ProvingKey:
             base_i = 2 + K
             qlk = const[:, SEL_QLK]
             tcol = const[:, NUM_SELECTORS + W]
-            fac = lookup_factors(w, lam)
             hs = [_col(z, K + g) for g in range(nh)]
-            for g, (s, e) in enumerate(self.lk_groups):
-                cols = list(range(s, e))
-                prod = E.prod(fac, cols)
-                allbut = _fold(E.add, [
-                    E.prod(fac, cols[:i] + cols[i + 1:]) if len(cols) > 1
-                    else E.from_base(torch.ones_like(x))
-                    for i in range(len(cols))])
-                c_h = E.sub(E.mul(hs[g], prod), E.mul_base(allbut, qlk))
+            # each group's product and sum of leave-one-out products
+            prods, allbuts = E.group_prod(lookup_factors(w, lam),
+                                          self.lk_groups, allbut=True)
+            for g in range(nh):
+                c_h = E.sub(E.mul(hs[g], prods[g]),
+                            E.mul_base(allbuts[g], qlk))
                 terms.append(a_mul(base_i + g, c_h))
             h_t = _col(z, K + nh)
             c_ht = E.sub(E.mul(h_t, (gl.sub(lam[0], tcol), lam[1])),
