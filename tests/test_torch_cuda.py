@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_acir_prover_torch import api
+from tpu_acir_prover_torch.acir import codec, ir
 from tpu_acir_prover_torch.acir.translator import translate_program
 from tpu_acir_prover_torch.circuit.builder import CircuitBuilder
 from tpu_acir_prover_torch.circuit.compile import compile_circuit
@@ -40,6 +42,7 @@ from tpu_acir_prover_torch.prover.prove import ProvingKey, prove
 from tpu_acir_prover_torch.prover.serialization import serialize_proof
 from tpu_acir_prover_torch.prover.verify import verify
 from tpu_acir_prover_torch.utils import circuits
+from tpu_acir_prover_torch.utils.timing import PhaseTimer
 
 EDGES = np.array([0, P - 1, 1 << 32, (1 << 32) - 1], dtype=np.uint64)
 
@@ -612,3 +615,41 @@ def test_one_graph_proves_two_witnesses(cuda):
         assert pk._captured is graph
     assert got[0] == got[2] != got[1]
     assert got[1] == serialize_proof(prove(pk, exts[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fused", "per_phase"])
+def test_device_counters_lie_within_their_spans(cuda, tmp_path, monkeypatch,
+                                                path):
+    """A warm proof through ``api.prove_file``: the card's time by CUDA
+    events (the replay's, the quotient phase's) is above 0 and at most the
+    host span around it; without a timer no event is recorded, and the
+    proof bytes are the same."""
+    monkeypatch.setenv("TPU_ACIR_FUSED", "1" if path == "fused" else "0")
+    prog, wm = circuits.fibonacci()
+    files = [str(tmp_path / n) for n in ("prog.json", "w.gz", "proof")]
+    codec.save_program_artifact(files[0], prog)
+    codec.save_witness_stack(files[1], ir.WitnessStack([ir.StackItem(0, wm)]))
+    api.prove_file(*files, TEST_CONFIG, cuda)     # cold: key and capture
+    recorded = []
+    real = torch.cuda.Event.record
+
+    def spy(self, stream=None):
+        recorded.append(self)
+        return real(self, stream)
+
+    monkeypatch.setattr(torch.cuda.Event, "record", spy)
+    untimed = api.prove_file(*files, TEST_CONFIG, cuda)
+    assert not recorded
+    timer = PhaseTimer()
+    assert api.prove_file(*files, TEST_CONFIG, cuda, timer=timer) == untimed
+    assert recorded
+    spans = {}
+    for name, s in timer.phases:
+        spans[name] = spans.get(name, 0.0) + s
+    if path == "fused":
+        dev, host = timer.counters["replay_device_s"], spans["fused_device"]
+    else:
+        dev = timer.counters["phase_device_s"]["quotient"]
+        host = spans["quotient"]
+    assert 0 < dev <= host

@@ -26,6 +26,7 @@ from .prover.serialization import (
     COMPRESSED_PROOF_MAGIC, deserialize_compressed_proof, deserialize_proof,
     deserialize_vk, serialize_compressed_proof, serialize_proof, serialize_vk)
 from .prover.verify import verify
+from .utils import timing
 
 _CACHE: Dict[Tuple[bytes, ProofConfig, str],
              Tuple[AcirTranslator, ProvingKey]] = {}
@@ -57,16 +58,28 @@ def _prove_dispatch(pk: ProvingKey, ext, timer=None):
 def prove_file(bytecode_path: str, witness_path: str, out_path: str,
                config: ProofConfig = STANDARD_CONFIG, device="cuda",
                compress: bool = True, timer=None) -> bytes:
-    tr, pk = load_and_compile(bytecode_path, config, device)
-    ws = codec.load_witness_stack(witness_path)
-    witness_map = ws.peek().witness if ws.stack else {}
-    proof = _prove_dispatch(pk, tr.external_values(witness_map), timer=timer)
-    if compress:
-        data = serialize_compressed_proof(compress_proof(pk.vk, proof))
-    else:
-        data = serialize_proof(proof)
-    with open(out_path, "wb") as f:
-        f.write(data)
+    """Prove the witness file's first stack item and write the proof file.
+
+    An enabled ``timer`` (``utils/timing.PhaseTimer``) gets one span for
+    each step of the call, the provers' own phases among them, and the
+    call's counters; the call's record goes to ``timing.finished()``."""
+    timer = timer or timing.PhaseTimer(enabled=False)
+    with timing.proof(timer):
+        with timer.phase("key_lookup"):
+            tr, pk = load_and_compile(bytecode_path, config, device)
+        with timer.phase("witness_read"):
+            ws = codec.load_witness_stack(witness_path)
+            witness_map = ws.peek().witness if ws.stack else {}
+            ext = tr.external_values(witness_map)
+        proof = _prove_dispatch(pk, ext, timer=timer)
+        if compress:
+            proof = compress_proof(pk.vk, proof, timer=timer)
+        with timer.phase("serialize"):
+            data = (serialize_compressed_proof if compress
+                    else serialize_proof)(proof)
+        with timer.phase("write"):
+            with open(out_path, "wb") as f:
+                f.write(data)
     return data
 
 

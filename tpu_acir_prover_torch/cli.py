@@ -8,7 +8,9 @@ in place of ``--backend``:
   verify   -k <vk> -p <proof>
 
 verify prints nothing and exits 0 on success; any failure, a missing CUDA
-device included, exits 1 with the reason on stderr.
+device included, exits 1 with the reason on stderr.  With
+``TPU_ACIR_TIMING=1``, prove prints the proof's spans and counters on
+stderr (``utils/timing.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import sys
 
 from . import api
 from .prover.config import STANDARD_CONFIG, TEST_CONFIG
+from .utils.timing import env_timer
 
 
 def _config(args):
@@ -50,8 +53,13 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     try:
         if args.cmd == "prove":
+            timer = env_timer()
             api.prove_file(args.bytecode_path, args.witness_path,
-                           args.proof_path, _config(args), args.device)
+                           args.proof_path, _config(args), args.device,
+                           timer=timer)
+            if timer.enabled:
+                timer.report()
+                timer.report_counters()
         elif args.cmd == "write_vk":
             api.write_vk_file(args.bytecode_path, args.vk_path,
                               _config(args), args.device)

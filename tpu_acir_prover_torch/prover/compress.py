@@ -28,6 +28,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Set, Tuple
 
 from ..field.poseidon import hash_no_pad_ints, two_to_one_ints
+from ..utils.timing import PhaseTimer
 from .proof import (Digest, Ext, FriStep, Openings, OracleOpening, Proof,
                     QueryRound, VerifyingKey)
 
@@ -133,10 +134,18 @@ def _fri_layer_indices(indices, num_layers: int, m: int):
     return per_layer
 
 
-def compress_proof(vk: VerifyingKey, proof: Proof) -> CompressedProof:
+def compress_proof(vk: VerifyingKey, proof: Proof,
+                   timer: PhaseTimer = None) -> CompressedProof:
     from .verify import derive_transcript
+    timer = timer or PhaseTimer(enabled=False)
+    with timer.phase("compress_transcript"):
+        indices = derive_transcript(vk, proof)[-1]
+    with timer.phase("compress_prune"):
+        return _prune(vk, proof, indices)
+
+
+def _prune(vk: VerifyingKey, proof: Proof, indices) -> CompressedProof:
     m = (1 << vk.log_n) << vk.rate_bits
-    indices = derive_transcript(vk, proof)[-1]
     num_layers = len(proof.fri_caps)
     layer_idx = _fri_layer_indices(indices, num_layers, m)
 

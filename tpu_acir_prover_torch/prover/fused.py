@@ -238,18 +238,32 @@ class CapturedProof:
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.out = torch.empty(self.flat.shape, dtype=torch.int64,
                                pin_memory=True)
+        # the replay's device time, recorded for an enabled timer only
+        self.replay_events = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
 
     def _load(self, host):
         for st, dst, a in zip(self.staging, self.inputs, host):
             st.numpy()[...] = np.ascontiguousarray(a, np.uint64).view(np.int64)
             dst.copy_(st, non_blocking=True)
 
-    def run(self, vals, pub, mcol) -> np.ndarray:
-        """Inputs in, one replay, the outputs out as a flat uint64 array."""
+    def run(self, vals, pub, mcol, timer: PhaseTimer = None) -> np.ndarray:
+        """Inputs in, one replay, the outputs out as a flat uint64 array;
+        an enabled ``timer`` counts the replay's device time
+        (``replay_device_s``)."""
+        timed = timer is not None and timer.enabled
+        start, end = self.replay_events
+        stream = torch.cuda.current_stream(self.flat.device)
         self._load([a for a in (vals, pub, mcol) if a is not None])
+        if timed:
+            start.record(stream)
         self.graph.replay()
+        if timed:
+            end.record(stream)
         self.out.copy_(self.flat, non_blocking=True)
-        torch.cuda.current_stream(self.flat.device).synchronize()
+        stream.synchronize()
+        if timed:
+            timer.count("replay_device_s", start.elapsed_time(end) * 1e-3)
         return self.out.numpy().view(np.uint64).copy()
 
 
@@ -264,15 +278,16 @@ def prove_fused(pk: ProvingKey, external_values: np.ndarray,
     cc = pk.compiled
     with timer.phase("witness_fill"):
         vals = cc.generate_witness(external_values)
-    pub_values = cc.public_values(vals)
-    pub = np.array(pub_values, dtype=np.uint64)
-    mcol = cc.multiplicities(cc.wire_values(vals)) if pk.has_lookups \
-        else None
+    with timer.phase("inputs"):
+        pub_values = cc.public_values(vals)
+        pub = np.array(pub_values, dtype=np.uint64)
+        mcol = cc.multiplicities(cc.wire_values(vals)) if pk.has_lookups \
+            else None
     with timer.phase("fused_device"):
         if pk.device.type == "cuda":
             if pk._captured is None:
                 pk._captured = CapturedProof(pk, vals, pub, mcol)
-            flat = pk._captured.run(vals, pub, mcol)
+            flat = pk._captured.run(vals, pub, mcol, timer)
             layout = pk._captured.layout
         else:
             flat, layout = _flat_graph(pk, *(None if a is None else pk._dev(a)

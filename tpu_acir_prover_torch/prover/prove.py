@@ -526,41 +526,49 @@ def prove(pk: ProvingKey, external_values: np.ndarray,
     if check_constraints:
         bad = cc.check_constraints(vals)
         assert bad is None, f"constraint violated at row {bad}"
-    pub_values = cc.public_values(vals)
-    mcol = cc.multiplicities(cc.wire_values(vals)) if pk.has_lookups else None
+    with timer.phase("inputs"):
+        pub_values = cc.public_values(vals)
+        mcol = cc.multiplicities(cc.wire_values(vals)) if pk.has_lookups \
+            else None
 
-    challenger = Challenger()
-    for d in pk.vk.constants_cap:
-        challenger.observe_many(d)
-    challenger.observe_many(pub_values)
+    # the transcript's host work between phases is one span, "transcript"
+    with timer.phase("transcript"):
+        challenger = Challenger()
+        for d in pk.vk.constants_cap:
+            challenger.observe_many(d)
+        challenger.observe_many(pub_values)
 
     # ---- phase 1: wire (+ multiplicity) commitment ---------------------------
-    # each phase ends in a cap copy to the host, which waits for the device
-    with timer.phase("wire_commit"):
+    # each phase ends in a cap copy to the host, which waits for the device;
+    # an enabled timer counts the card's time of each by two CUDA events
+    with timer.device_phase("wire_commit", pk.device):
         wires = pk.build_wires(pk._dev(vals),
                                None if mcol is None else pk._dev(mcol))
         wires_oracle = pk.commit(wires)
         challenger.observe_cap(wires_oracle.tree.cap_u64())
-    beta = challenger.get_ext_challenge()
-    gamma = challenger.get_ext_challenge()
-    lam = challenger.get_ext_challenge() if pk.has_lookups else None
+    with timer.phase("transcript"):
+        beta = challenger.get_ext_challenge()
+        gamma = challenger.get_ext_challenge()
+        lam = challenger.get_ext_challenge() if pk.has_lookups else None
 
     # ---- phase 2: Z, partial products, lookup helpers -------------------------
-    with timer.phase("permutation_z"):
+    with timer.device_phase("permutation_z", pk.device):
         z_oracle = pk.commit(pk.round2_phase(wires, beta, gamma, lam))
         challenger.observe_cap(z_oracle.tree.cap_u64())
-    alpha = challenger.get_ext_challenge()
+    with timer.phase("transcript"):
+        alpha = challenger.get_ext_challenge()
 
     # ---- phase 3: quotient ------------------------------------------------------
-    with timer.phase("quotient"):
+    with timer.device_phase("quotient", pk.device):
         q_cols = pk.quotient_phase(wires_oracle.lde, z_oracle.lde,
                                    pub_values, beta, gamma, lam, alpha)
         quotient_oracle = pk.commit(q_cols, from_coeffs=True)
         challenger.observe_cap(quotient_oracle.tree.cap_u64())
-    zeta = challenger.get_ext_challenge()
+    with timer.phase("transcript"):
+        zeta = challenger.get_ext_challenge()
 
     # ---- phase 4: openings at zeta (and g*zeta for the round-2 oracle) --------
-    with timer.phase("openings"):
+    with timer.device_phase("openings", pk.device):
         zpows = E.powers(zeta, n, pk.device)
         gzeta = e_mul((pk.omega, 0), zeta)
         gzpows = E.powers(gzeta, n, pk.device)
@@ -576,7 +584,7 @@ def prove(pk: ProvingKey, external_values: np.ndarray,
 
     # ---- phase 5: FRI ------------------------------------------------------------
     oracles = [pk.constants_oracle, wires_oracle, z_oracle, quotient_oracle]
-    with timer.phase("fri"):
+    with timer.device_phase("fri", pk.device):
         ys = (openings.constants_sigmas + openings.wires + openings.z +
               openings.quotient)
         cur = pk.fri_combine([o.lde for o in oracles], fri_alpha, ys,
@@ -599,15 +607,16 @@ def prove(pk: ProvingKey, external_values: np.ndarray,
             challenger.observe(c0)
             challenger.observe(c1)
 
-    with timer.phase("pow_grind"):
+    with timer.device_phase("pow_grind", pk.device):
         pow_witness = pk.grind(challenger, cfg.pow_bits)
-    challenger.observe(pow_witness)
-    pow_challenge = challenger.get_challenge()
-    assert pow_challenge < (1 << (64 - cfg.pow_bits))
-    indices = challenger.get_indices(cfg.num_queries, m)
+    with timer.phase("transcript"):
+        challenger.observe(pow_witness)
+        pow_challenge = challenger.get_challenge()
+        assert pow_challenge < (1 << (64 - cfg.pow_bits))
+        indices = challenger.get_indices(cfg.num_queries, m)
 
     # ---- phase 6: query rounds (one gather and one copy per tree) -------------
-    with timer.phase("queries"):
+    with timer.device_phase("queries", pk.device):
         oracle_q = [o.tree.rows_and_paths(indices) for o in oracles]
         layer_q = []
         cur_idx = list(indices)
@@ -632,14 +641,15 @@ def prove(pk: ProvingKey, external_values: np.ndarray,
     def cap_list(tree):
         return [tuple(int(x) for x in d) for d in tree.cap_u64()]
 
-    return Proof(
-        public_inputs=pub_values,
-        wires_cap=cap_list(wires_oracle.tree),
-        z_cap=cap_list(z_oracle.tree),
-        quotient_cap=cap_list(quotient_oracle.tree),
-        openings=openings,
-        fri_caps=[cap_list(t) for t in fri_trees],
-        fri_final_coeffs=final_coeffs,
-        fri_pow_witness=pow_witness,
-        fri_queries=queries,
-    )
+    with timer.phase("assemble"):
+        return Proof(
+            public_inputs=pub_values,
+            wires_cap=cap_list(wires_oracle.tree),
+            z_cap=cap_list(z_oracle.tree),
+            quotient_cap=cap_list(quotient_oracle.tree),
+            openings=openings,
+            fri_caps=[cap_list(t) for t in fri_trees],
+            fri_final_coeffs=final_coeffs,
+            fri_pow_witness=pow_witness,
+            fri_queries=queries,
+        )
