@@ -35,12 +35,14 @@ from tpu_acir_prover_torch.parallel.mesh import Mesh
 from tpu_acir_prover_torch.parallel.prove import (ShardedProvingKey,
                                                   prove_sharded)
 from tpu_acir_prover_torch.prover import prove as prove_mod
+from tpu_acir_prover_torch.prover.compress import compress_proof
 from tpu_acir_prover_torch.prover.config import TEST_CONFIG
 from tpu_acir_prover_torch.prover.fused import prove_fused
 from tpu_acir_prover_torch.prover.merkle import merkle_levels
 from tpu_acir_prover_torch.prover.prove import ProvingKey, prove
-from tpu_acir_prover_torch.prover.serialization import serialize_proof
-from tpu_acir_prover_torch.prover.verify import verify
+from tpu_acir_prover_torch.prover.serialization import (
+    deserialize_proof, serialize_compressed_proof, serialize_proof)
+from tpu_acir_prover_torch.prover.verify import derive_transcript, verify
 from tpu_acir_prover_torch.utils import circuits
 from tpu_acir_prover_torch.utils.timing import PhaseTimer
 
@@ -653,3 +655,38 @@ def test_device_counters_lie_within_their_spans(cuda, tmp_path, monkeypatch,
         dev = timer.counters["phase_device_s"]["quotient"]
         host = spans["quotient"]
     assert 0 < dev <= host
+
+
+@pytest.mark.cuda
+def test_prove_file_hands_over_indices_out_of_the_graph(cuda, tmp_path,
+                                                       monkeypatch):
+    """Warm fused ``api.prove_file`` calls on two witnesses of one program,
+    the first again: each file's bytes are those of the compression that
+    derives the indices from the transcript, and the indices a replay
+    hands back stay its own after the next replay overwrites the graph's
+    shared output buffers."""
+    monkeypatch.setenv("TPU_ACIR_FUSED", "1")
+    pairs = [(0xA5A5_5A5A, 0x0F0F_F0F0), (12345, 987654321)]
+    made = [circuits.bitwise("xor", 32, x, y) for x, y in pairs]
+    prog = str(tmp_path / "prog.json")
+    codec.save_program_artifact(prog, made[0][0])
+    wits = []
+    for i, (_, wm) in enumerate(made):
+        wits.append(str(tmp_path / f"w{i}.gz"))
+        codec.save_witness_stack(wits[-1],
+                                 ir.WitnessStack([ir.StackItem(0, wm)]))
+    out = str(tmp_path / "proof")
+    api.prove_file(prog, wits[0], out, TEST_CONFIG, cuda)    # cold
+    tr, pk = api.load_and_compile(prog, TEST_CONFIG, cuda)
+    derived = []
+    for w in (wits[0], wits[1], wits[0]):
+        data = api.prove_file(prog, w, out, TEST_CONFIG, cuda)
+        proof = deserialize_proof(api.prove_file(prog, w, out, TEST_CONFIG,
+                                                 cuda, compress=False))
+        assert data == serialize_compressed_proof(compress_proof(pk.vk,
+                                                                 proof))
+        derived.append(derive_transcript(pk.vk, proof)[-1])
+    assert derived[0] == derived[2] != derived[1]
+    handed = [prove_fused(pk, tr.external_values(wm), with_indices=True)[1]
+              for _, wm in made]
+    assert handed == derived[:2]

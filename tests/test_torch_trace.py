@@ -18,7 +18,11 @@ from torch.profiler import ProfilerActivity, profile
 
 from tpu_acir_prover_torch import api, cli
 from tpu_acir_prover_torch.acir import codec, ir
+from tpu_acir_prover_torch.prover import verify
+from tpu_acir_prover_torch.prover.compress import compress_proof
 from tpu_acir_prover_torch.prover.config import TEST_CONFIG
+from tpu_acir_prover_torch.prover.serialization import (
+    deserialize_proof, serialize_compressed_proof)
 from tpu_acir_prover_torch.utils import circuits, timing
 from tpu_acir_prover_torch.utils.timing import PhaseTimer
 
@@ -81,7 +85,42 @@ def test_spans_cover_prove_file_in_call_order(files, monkeypatch, path):
     assert rec["start"] * 1e9 <= timer.spans[0][1]
     assert timer.spans[-1][2] <= rec["end"] * 1e9
     assert rec["counters"] is timer.counters
-    assert set(rec["counters"]) == {"gc_pause_s", "gc_collections"}
+    assert set(rec["counters"]) == {"gc_pause_s", "gc_collections",
+                                    "compress_replays"}
+
+
+@pytest.mark.parametrize("path", ["fused", "per_phase"])
+def test_prove_file_hands_the_compressor_its_indices(files, monkeypatch,
+                                                     path):
+    """Under ``prove_file`` the compressor takes the prover's query
+    indices: no transcript replay, ``compress_replays`` 0 in the record."""
+    monkeypatch.setenv("TPU_ACIR_FUSED", FUSED_ENV[path])
+    replays = []
+    real = verify.derive_transcript
+
+    def spy(*a, **k):
+        replays.append(a)
+        return real(*a, **k)
+
+    monkeypatch.setattr(verify, "derive_transcript", spy)
+    _prove(files, PhaseTimer())
+    assert replays == []
+    c = timing.finished()[-1]["counters"]
+    assert c["compress_replays"] == 0 and type(c["compress_replays"]) is int
+
+
+def test_bare_compress_proof_counts_its_replay(files):
+    """A caller that holds only the proof has the transcript replayed,
+    counted once; the bytes are ``prove_file``'s."""
+    data = _prove(files)
+    raw = api.prove_file(*files, TEST_CONFIG, "cpu", compress=False)
+    _, pk = api.load_and_compile(files[0], TEST_CONFIG, "cpu")
+    timer = PhaseTimer()
+    cp = compress_proof(pk.vk, deserialize_proof(raw), timer=timer)
+    assert timer.counters == {"compress_replays": 1}
+    assert [n for n, _ in timer.phases] == ["compress_transcript",
+                                            "compress_prune"]
+    assert serialize_compressed_proof(cp) == data
 
 
 def test_timer_spans_of_each_call_in_its_record(files):
@@ -200,6 +239,7 @@ def test_cli_timing_switch(files, monkeypatch, capsys, switch):
     assert lines[len(SPANS["fused"])].split()[0] == "total"
     shown = [ln.split()[0] for ln in lines[len(SPANS["fused"]) + 1:]]
     assert shown == ["gc_pause_s", "gc_collections[0]",
-                     "gc_collections[1]", "gc_collections[2]"]
+                     "gc_collections[1]", "gc_collections[2]",
+                     "compress_replays"]
     assert last is not before and [n for n, _, _ in last["spans"]] == \
         SPANS["fused"]

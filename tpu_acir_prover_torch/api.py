@@ -46,13 +46,14 @@ def load_and_compile(bytecode_path: str, config: ProofConfig = STANDARD_CONFIG,
     return _CACHE[key]
 
 
-def _prove_dispatch(pk: ProvingKey, ext, timer=None):
+def _prove_dispatch(pk: ProvingKey, ext, timer=None, **kw):
     """The fused prover up to 2^18 rows, the per-phase one above (its
-    temporaries are freed between phases); TPU_ACIR_FUSED=0/1 forces."""
+    temporaries are freed between phases); TPU_ACIR_FUSED=0/1 forces.
+    ``kw`` goes to the prover (``with_indices``)."""
     fused_default = "1" if pk.n <= (1 << 18) else "0"
     if os.environ.get("TPU_ACIR_FUSED", fused_default) != "0":
-        return prove_fused(pk, ext, timer=timer)
-    return prove(pk, ext, timer=timer)
+        return prove_fused(pk, ext, timer=timer, **kw)
+    return prove(pk, ext, timer=timer, **kw)
 
 
 def prove_file(bytecode_path: str, witness_path: str, out_path: str,
@@ -62,7 +63,9 @@ def prove_file(bytecode_path: str, witness_path: str, out_path: str,
 
     An enabled ``timer`` (``utils/timing.PhaseTimer``) gets one span for
     each step of the call, the provers' own phases among them, and the
-    call's counters; the call's record goes to ``timing.finished()``."""
+    call's counters; the call's record goes to ``timing.finished()``.  The
+    compressor takes the query indices the prover drew, so the transcript
+    is not replayed (``compress_replays`` 0)."""
     timer = timer or timing.PhaseTimer(enabled=False)
     with timing.proof(timer):
         with timer.phase("key_lookup"):
@@ -71,9 +74,11 @@ def prove_file(bytecode_path: str, witness_path: str, out_path: str,
             ws = codec.load_witness_stack(witness_path)
             witness_map = ws.peek().witness if ws.stack else {}
             ext = tr.external_values(witness_map)
-        proof = _prove_dispatch(pk, ext, timer=timer)
+        proof, indices = _prove_dispatch(pk, ext, timer=timer,
+                                         with_indices=True)
         if compress:
-            proof = compress_proof(pk.vk, proof, timer=timer)
+            proof = compress_proof(pk.vk, proof, timer=timer,
+                                   indices=indices)
         with timer.phase("serialize"):
             data = (serialize_compressed_proof if compress
                     else serialize_proof)(proof)

@@ -17,9 +17,12 @@ Merkle sibling digest the verifier can recompute:
 Prover-side pruning and verifier-side reconstruction walk the query rounds
 in the same deterministic order (queries in proof order, tree levels bottom
 up, oracles before FRI layers), so the flat pruned-digest stream needs no
-per-entry addressing.  Query indices are re-derived from the Fiat-Shamir
+per-entry addressing.  The prover hands the compressor the query indices
+it drew (``api.prove_file``), which it holds to the proof's shape; a caller
+that holds only the proof has them re-derived from the Fiat-Shamir
 transcript (verify.derive_transcript), mirroring how the reference needs
-`CommonCircuitData` to (de)compress.
+`CommonCircuitData` to (de)compress.  The decompressor always re-derives
+them: the verifier trusts no index the proof brings.
 """
 
 from __future__ import annotations
@@ -134,14 +137,47 @@ def _fri_layer_indices(indices, num_layers: int, m: int):
     return per_layer
 
 
-def compress_proof(vk: VerifyingKey, proof: Proof,
-                   timer: PhaseTimer = None) -> CompressedProof:
+def compress_proof(vk: VerifyingKey, proof: Proof, timer: PhaseTimer = None,
+                   indices=None) -> CompressedProof:
+    """The proof with its reconstructible Merkle digests pruned.
+
+    ``indices``: the query indices the prover drew for this proof (the
+    provers' ``with_indices``), checked against the proof's shape; without
+    them the transcript is replayed for them, which an enabled ``timer``
+    counts in ``compress_replays``.  A malformed proof raises
+    ``VerificationError`` either way."""
     from .verify import derive_transcript
     timer = timer or PhaseTimer(enabled=False)
     with timer.phase("compress_transcript"):
-        indices = derive_transcript(vk, proof)[-1]
+        replayed = indices is None
+        if replayed:
+            indices = derive_transcript(vk, proof)[-1]
+        else:
+            _check_shape(vk, proof, indices)
+        timer.count("compress_replays", int(replayed))
     with timer.phase("compress_prune"):
         return _prune(vk, proof, indices)
+
+
+def _check_shape(vk: VerifyingKey, proof: Proof, indices) -> None:
+    """What ``derive_transcript`` checks of a proof's shape on its way to
+    the indices, and that the indices fit the proof."""
+    from .verify import VerificationError
+    m = (1 << vk.log_n) << vk.rate_bits
+    if not len(indices) == vk.num_queries == len(proof.fri_queries):
+        raise VerificationError("query count mismatch")
+    if not all(0 <= i < m for i in indices):
+        raise VerificationError("query index out of range")
+    num_layers, cur = 0, m
+    while cur > vk.final_poly_domain:
+        num_layers += 1
+        cur //= 2
+    if len(proof.fri_caps) < num_layers:
+        raise VerificationError("missing FRI layer caps")
+    if len(proof.fri_caps) > num_layers:
+        raise VerificationError("extra FRI layer caps")
+    if len(proof.fri_final_coeffs) != vk.final_poly_domain:
+        raise VerificationError("final poly length mismatch")
 
 
 def _prune(vk: VerifyingKey, proof: Proof, indices) -> CompressedProof:

@@ -268,9 +268,10 @@ class CapturedProof:
 
 
 def prove_fused(pk: ProvingKey, external_values: np.ndarray,
-                timer: PhaseTimer = None) -> Proof:
+                timer: PhaseTimer = None, with_indices: bool = False):
     """Same proof as ``prove.prove``; on CUDA a replay of the key's graph,
-    on the CPU an eager run of the same body."""
+    on the CPU an eager run of the same body.  With ``with_indices``,
+    ``(proof, indices)`` as ``prove.prove`` gives them."""
     if not pk.fusable:
         raise TypeError(f"prove_fused proves on one device; a "
                         f"{type(pk).__name__} proves with prove_sharded")
@@ -294,7 +295,10 @@ def prove_fused(pk: ProvingKey, external_values: np.ndarray,
                                              for a in (vals, pub, mcol)))
             flat = gl.to_u64(flat)
     with timer.phase("assemble"):
-        return _assemble_proof(pub_values, _unflatten(flat, layout))
+        out = _unflatten(flat, layout)
+        proof = _assemble_proof(pub_values, out)
+        indices = [int(i) for i in out["indices"]]
+    return (proof, indices) if with_indices else proof
 
 
 def _assemble_proof(pub_values, out) -> Proof:

@@ -514,7 +514,11 @@ class ProvingKey:
 
 
 def prove(pk: ProvingKey, external_values: np.ndarray,
-          check_constraints: bool = False, timer: PhaseTimer = None) -> Proof:
+          check_constraints: bool = False, timer: PhaseTimer = None,
+          with_indices: bool = False):
+    """The proof; with ``with_indices``, ``(proof, indices)``: the query
+    indices the transcript drew, python ints in query order, which the
+    compressor takes in place of replaying the transcript."""
     timer = timer or PhaseTimer(enabled=False)
     cc = pk.compiled
     cfg = pk.config
@@ -642,7 +646,7 @@ def prove(pk: ProvingKey, external_values: np.ndarray,
         return [tuple(int(x) for x in d) for d in tree.cap_u64()]
 
     with timer.phase("assemble"):
-        return Proof(
+        proof = Proof(
             public_inputs=pub_values,
             wires_cap=cap_list(wires_oracle.tree),
             z_cap=cap_list(z_oracle.tree),
@@ -653,3 +657,4 @@ def prove(pk: ProvingKey, external_values: np.ndarray,
             fri_pow_witness=pow_witness,
             fri_queries=queries,
         )
+    return (proof, indices) if with_indices else proof

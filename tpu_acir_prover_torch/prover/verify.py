@@ -58,10 +58,12 @@ def derive_transcript(vk: VerifyingKey, proof: Proof):
     """Replay the Fiat-Shamir transcript over the proof's commitments.
 
     Returns (beta, gamma, lam, alpha, zeta, fri_alpha, betas, pow_challenge,
-    indices).  Shared by verify() and the proof compressor (compress.py),
-    which needs the query indices to prune Merkle paths — the analog of the
-    reference's `proof.compress(circuit_digest, common)` needing CommonData
-    (prove_action.rs:75-78)."""
+    indices).  Shared by verify(), the decompressor and the proof
+    compressor (compress.py) when its caller holds no query indices: it
+    needs them to prune Merkle paths — the analog of the reference's
+    `proof.compress(circuit_digest, common)` needing CommonData
+    (prove_action.rs:75-78).  ``api.prove_file`` hands the compressor the
+    prover's own indices instead."""
     m = (1 << vk.log_n) << vk.rate_bits
     ch = Challenger()
     for d in vk.constants_cap:

@@ -14,7 +14,8 @@ process-wide proof id, the collector's pauses are counted while it runs
 record goes to the bounded log ``finished()``.  The
 provers add the card's time by CUDA events: ``replay_device_s`` around the
 fused graph's replay, ``phase_device_s[name]`` over each per-phase phase
-(``device_phase``).  A disabled timer, or none, keeps nothing.
+(``device_phase``); the compressor counts its transcript replays
+(``compress_replays``).  A disabled timer, or none, keeps nothing.
 
 ``python -m tpu_acir_prover_torch.cli prove`` with ``TPU_ACIR_TIMING=1``
 prints the proof's spans and counters on standard error (``env_timer``).
@@ -95,7 +96,7 @@ class PhaseTimer:
     def count(self, name: str, value: float) -> None:
         """Add ``value`` to counter ``name`` (an enabled timer only)."""
         if self.enabled:
-            self.counters[name] = self.counters.get(name, 0.0) + value
+            self.counters[name] = self.counters.get(name, 0) + value
 
     def _on_gc(self, phase: str, info: dict) -> None:
         now = time.perf_counter_ns()
