@@ -105,6 +105,8 @@ class AcirTranslator:
                 self._bitwise(op)
             elif isinstance(op, ir.BlackBoxSha256Compression):
                 self._sha256_compression(op)
+            elif isinstance(op, ir.BlackBoxEcdsaSecp256k1):
+                self._ecdsa(op)
             else:
                 raise UnsupportedOpcodeError(
                     f"unsupported opcode: {type(op).__name__}")
@@ -193,6 +195,10 @@ class AcirTranslator:
     def _sha256_compression(self, op: ir.BlackBoxSha256Compression):
         from ..ops.sha256 import translate_sha256_compression
         translate_sha256_compression(self, op)
+
+    def _ecdsa(self, op: ir.BlackBoxEcdsaSecp256k1):
+        from ..ops.ecdsa import translate_ecdsa_secp256k1
+        translate_ecdsa_secp256k1(self, op)
 
     # -- witness extraction (prove_action.rs:102-117) --------------------------------------
 

@@ -101,7 +101,11 @@ def forbidden_modules() -> List[str]:
 
 
 def _phase_timer(traced: bool):
-    """A ``PhaseTimer`` that also marks each phase for the profiler."""
+    """A ``PhaseTimer`` that also marks each phase for the profiler, inside
+    the program's own span: the record that ``timing.finished()`` keeps of
+    the proof holds its spans, and the mark stays the innermost
+    annotation, the one whose shadow on the card carries its name (a
+    torch whose events give no activity type tells the shadow by it)."""
     from torch.profiler import record_function
     from tpu_acir_prover_torch.utils.timing import PhaseTimer
 
@@ -110,10 +114,8 @@ def _phase_timer(traced: bool):
         def phase(self, name: str):
             mark = record_function(trace.PHASE_SPAN + name) if traced \
                 else nullcontext()
-            t0 = time.perf_counter()
-            with mark:
+            with super().phase(name), mark:
                 yield
-            self.phases.append((name, time.perf_counter() - t0))
 
     return Spans()
 

@@ -1,6 +1,8 @@
-"""The ``api`` layer's own time a proof (witness file read, dispatch,
-compression, serialization, the file written): the host clock around
-``prove_file`` less the total of its ``PhaseTimer``; median, ms."""
+"""The host time of a proof that no ``PhaseTimer`` span holds: the host
+clock around ``prove_file`` less the total of its spans (which cover the
+witness file's read, the fill, the prover, the compression, the
+serialization and the write), so the spans' own entry and exit and any
+work that slips out of every span; median, ms."""
 
 import statistics
 

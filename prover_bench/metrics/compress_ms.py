@@ -1,7 +1,8 @@
 """``api``'s compression of a proof: the ``PhaseTimer`` phases
-``compress_transcript`` (the Fiat-Shamir transcript replayed on the host
-for the query indices) and ``compress_prune`` (the Merkle paths pruned),
-summed; median, ms."""
+``compress_transcript`` (under ``prove_file`` the query indices that the
+prover drew handed to the compressor and held to the proof's shape; a
+replay of the Fiat-Shamir transcript only for a caller without them) and
+``compress_prune`` (the Merkle paths pruned), summed; median, ms."""
 
 import statistics
 

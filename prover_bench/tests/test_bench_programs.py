@@ -51,7 +51,8 @@ def test_sha256_long_is_five_blocks_and_its_digest():
 
 
 @pytest.mark.parametrize("name,cfg", [
-    ("sha256", {"message_bytes": 250}), ("square_chain", {"steps": 8})])
+    ("sha256", {"message_bytes": 250}), ("square_chain", {"steps": 8}),
+    ("ecdsa", {})])
 def test_draws_follow_the_seed(name, cfg):
     prog = load(name)
     a = [prog.draw(cfg, random.Random(2 ** 32 + 7)) for _ in range(2)]

@@ -1,6 +1,7 @@
 """The readers of the program's own proof records (``records.py``) and of
 the compression's spans: only the records of the window's proofs count,
-and a program without the records or spans gives no number."""
+and a program without the records or spans gives no number; a proof timed
+by the harness leaves its spans in its record."""
 
 import pytest
 
@@ -62,3 +63,36 @@ def test_compress_ms_sums_the_two_spans():
     assert metrics.load("compress_ms").read(run) == pytest.approx(120.0)
     assert metrics.load("compress_ms").read(_run({"fused_device": 1.0})) \
         is None
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_a_harness_timed_proof_keeps_its_spans(tmp_path, traced):
+    """The harness's timer marks each phase and still lets the program's
+    timer keep the span: the proof's record in ``timing.finished()`` holds
+    the spans, in the timer's order and with its seconds."""
+    import random
+    from prover_bench import reference
+    from prover_bench.frozen.acir import codec, ir
+    from prover_bench.programs import square_chain
+    from tpu_acir_prover_torch import api
+    cfg = {"steps": 20,
+           "proof_config": {"rate_bits": 3, "cap_height": 1,
+                            "num_queries": 8, "pow_bits": 4,
+                            "final_poly_domain": 64}}
+    art, wit = str(tmp_path / "p.json"), str(tmp_path / "w.gz")
+    codec.save_program_artifact(art, square_chain.build(cfg))
+    codec.save_witness_stack(wit, ir.WitnessStack([ir.StackItem(
+        0, square_chain.witness(cfg, square_chain.draw(
+            cfg, random.Random(2 ** 33 + 5))))]))
+    timer = harness._phase_timer(traced)
+    api.prove_file(art, wit, str(tmp_path / "proof.bin"),
+                   reference.proof_config(cfg), "cpu", timer=timer)
+    api._CACHE.clear()
+    rec = timing.finished()[-1]
+    assert rec["proof_id"] == timer.proof_id
+    spans = rec["spans"]
+    assert [n for n, _, _ in spans] == [n for n, _ in timer.phases]
+    assert {"witness_fill", "compress_transcript", "serialize"} <= \
+        {n for n, _, _ in spans}
+    for (_, t0, t1), (_, s) in zip(spans, timer.phases):
+        assert (t1 - t0) * 1e-9 == pytest.approx(s)
