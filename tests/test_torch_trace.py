@@ -1,8 +1,9 @@
 """The port's per-proof trace (``utils/timing.py``) on the CPU: the spans
 that ``api.prove_file`` opens on the fused and the per-phase path, their
-clock against ``torch.profiler``'s, the collector's counters, the bounded
-log of finished proofs, that a proof without a timer keeps nothing, and the
-CLI's ``TPU_ACIR_TIMING`` switch.
+clock against ``torch.profiler``'s, the collector's and the witness
+fill's counters, the open span's timer, the bounded log of finished
+proofs, that a proof without a timer keeps nothing, and the CLI's
+``TPU_ACIR_TIMING`` switch.
 
 Imports no JAX, so it also runs on a machine without it:
 
@@ -38,6 +39,8 @@ SPANS = {
         "pow_grind", "transcript", "queries"] + TAIL,
 }
 FUSED_ENV = {"fused": "1", "per_phase": "0"}
+# the witness fill's counters (circuit/compile.py generate_witness)
+FILL = ["fill_native_s", "fill_hint_s"]
 
 
 @pytest.fixture
@@ -85,7 +88,7 @@ def test_spans_cover_prove_file_in_call_order(files, monkeypatch, path):
     assert rec["start"] * 1e9 <= timer.spans[0][1]
     assert timer.spans[-1][2] <= rec["end"] * 1e9
     assert rec["counters"] is timer.counters
-    assert set(rec["counters"]) == {"gc_pause_s", "gc_collections",
+    assert set(rec["counters"]) == {"gc_pause_s", "gc_collections", *FILL,
                                     "compress_replays"}
 
 
@@ -215,6 +218,21 @@ def test_log_keeps_its_maxlen():
                              timer.proof_id + 1))
 
 
+
+def test_open_timer_is_the_enabled_timer_whose_span_is_open():
+    """What the witness fill counts into: nothing outside a span, inside a
+    disabled timer's span, or after a span that raised."""
+    timer = PhaseTimer()
+    assert timing.open_timer() is None
+    with timer.phase("a"):
+        assert timing.open_timer() is timer
+    with PhaseTimer(enabled=False).phase("b"):
+        assert timing.open_timer() is None
+    with pytest.raises(ValueError), timer.phase("c"):
+        raise ValueError
+    assert timing.open_timer() is None
+    assert [n for n, _ in timer.phases] == ["a"]
+
 @pytest.mark.parametrize("switch", [None, "1"], ids=["unset", "set"])
 def test_cli_timing_switch(files, monkeypatch, capsys, switch):
     monkeypatch.setenv("TPU_ACIR_FUSED", "1")
@@ -239,7 +257,7 @@ def test_cli_timing_switch(files, monkeypatch, capsys, switch):
     assert lines[len(SPANS["fused"])].split()[0] == "total"
     shown = [ln.split()[0] for ln in lines[len(SPANS["fused"]) + 1:]]
     assert shown == ["gc_pause_s", "gc_collections[0]",
-                     "gc_collections[1]", "gc_collections[2]",
+                     "gc_collections[1]", "gc_collections[2]", *FILL,
                      "compress_replays"]
     assert last is not before and [n for n, _, _ in last["spans"]] == \
         SPANS["fused"]

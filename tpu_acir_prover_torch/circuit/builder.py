@@ -90,13 +90,10 @@ GEN_HINT_OUT = 8  # out = hint[a].fn(inputs)[const]  (custom host generator)
 GEN_MULMULC = 9   # out = v[a] * v[b] * const
 
 
-@dataclass
-class GenOp:
-    op: int
-    out: int
-    a: int = 0
-    b: int = 0
-    const: int = 0
+# a generator op is the tuple (op, out, a, b, const): the opcode, the var it
+# fills, its operands (a hint's id in a for GEN_HINT_OUT) and its constant,
+# 0 where unused
+GenOp = Tuple[int, int, int, int, int]
 
 
 @dataclass
@@ -144,7 +141,7 @@ class CircuitBuilder:
     def add_external(self) -> int:
         """A variable whose value is fed in at prove time (ACIR witness)."""
         v = self._new_var()
-        self.gen_ops.append(GenOp(GEN_EXTERNAL, v))
+        self.gen_ops.append((GEN_EXTERNAL, v, 0, 0, 0))
         return v
 
     def hint(self, inputs: Sequence[int], num_outputs: int, fn) -> List[int]:
@@ -155,7 +152,7 @@ class CircuitBuilder:
         hid = len(self.hints)
         self.hints.append(Hint(tuple(inputs), tuple(outs), fn))
         for j, o in enumerate(outs):
-            self.gen_ops.append(GenOp(GEN_HINT_OUT, o, a=hid, const=j))
+            self.gen_ops.append((GEN_HINT_OUT, o, hid, 0, j))
         return outs
 
     def constant(self, value: int) -> int:
@@ -163,7 +160,7 @@ class CircuitBuilder:
         if value in self._const_cache:
             return self._const_cache[value]
         v = self._new_var()
-        self.gen_ops.append(GenOp(GEN_CONST, v, const=value))
+        self.gen_ops.append((GEN_CONST, v, 0, 0, value))
         # constrain: value - w0 = 0  -> q0=-1, qC=value
         self.gate([v], q=[-1], qc=value)
         self._const_cache[value] = v
@@ -181,6 +178,8 @@ class CircuitBuilder:
             qms = [int(x) % P for x in qm] + [0] * (NUM_PAIRS - len(qm))
         else:
             qms = [int(qm) % P] + [0] * (NUM_PAIRS - 1)
+        assert len(w) == len(qs) == NUM_WIRES and len(qms) == NUM_PAIRS, \
+            "a row wider than the gate"
         self.rows.append(GateRow(tuple(w), tuple(qms), tuple(qs), int(qc) % P))
 
     def dot_row(self, mul_terms: Sequence[Tuple[int, int, int]],
@@ -195,12 +194,12 @@ class CircuitBuilder:
         Returns out."""
         nm, nl = len(mul_terms), len(lin_terms)
         assert nm <= NUM_PAIRS and 2 * nm + nl + (out is not None) <= NUM_WIRES
+        # the row, as gate() would append it
         wires: List[Optional[int]] = []
         qm = []
         for c, a, b in mul_terms:
             qm.append(c % P)
-            wires.append(a)
-            wires.append(b)
+            wires += (a, b)
         q = [0] * (2 * nm)
         for d, v in lin_terms:
             wires.append(v)
@@ -208,26 +207,30 @@ class CircuitBuilder:
         if out is not None:
             wires.append(out)
             q.append(P - 1)
-        self.gate(wires, qm=qm, q=q, qc=const)
+        wires += [None] * (NUM_WIRES - len(wires))
+        q += [0] * (NUM_WIRES - len(q))
+        qm += [0] * (NUM_PAIRS - nm)
+        self.rows.append(GateRow(tuple(wires), tuple(qm), tuple(q),
+                                 int(const) % P))
         if out is not None and make_gen:
             # generator chain: acc = const; acc += c*a*b; acc += d*v
             cur = self.zero if const % P == 0 else self.constant(const)
-            steps = []
+            ops = self.gen_ops
+            left = nm + nl
+            if not left:
+                ops.append((GEN_CONST, out, 0, 0, const % P))
             for c, a, b in mul_terms:
-                steps.append(("m", c % P, a, b))
-            for d, v in lin_terms:
-                steps.append(("l", d % P, v, None))
-            for idx, (kind, c, a, b) in enumerate(steps):
-                nv = out if idx == len(steps) - 1 else self._new_var()
-                if kind == "m":
-                    t = self._new_var()
-                    self.gen_ops.append(GenOp(GEN_MULMULC, t, a, b, c))
-                    self.gen_ops.append(GenOp(GEN_ADD, nv, t, cur))
-                else:
-                    self.gen_ops.append(GenOp(GEN_MULADDC, nv, a, cur, c))
+                left -= 1
+                nv = out if left == 0 else self._new_var()
+                t = self._new_var()
+                ops.append((GEN_MULMULC, t, a, b, c % P))
+                ops.append((GEN_ADD, nv, t, cur, 0))
                 cur = nv
-            if not steps:
-                self.gen_ops.append(GenOp(GEN_CONST, out, const=const % P))
+            for d, v in lin_terms:
+                left -= 1
+                nv = out if left == 0 else self._new_var()
+                ops.append((GEN_MULADDC, nv, v, cur, d % P))
+                cur = nv
         return out
 
     def new_derived(self) -> int:
@@ -255,33 +258,33 @@ class CircuitBuilder:
 
     def add(self, a: int, b: int) -> int:
         out = self._new_var()
-        self.gen_ops.append(GenOp(GEN_ADD, out, a, b))
+        self.gen_ops.append((GEN_ADD, out, a, b, 0))
         self.gate([a, b, out], q=[1, 1, -1])
         return out
 
     def sub(self, a: int, b: int) -> int:
         out = self._new_var()
-        self.gen_ops.append(GenOp(GEN_SUB, out, a, b))
+        self.gen_ops.append((GEN_SUB, out, a, b, 0))
         self.gate([a, b, out], q=[1, -1, -1])
         return out
 
     def mul(self, a: int, b: int) -> int:
         out = self._new_var()
-        self.gen_ops.append(GenOp(GEN_MUL, out, a, b))
+        self.gen_ops.append((GEN_MUL, out, a, b, 0))
         self.gate([a, b, out], qm=1, q=[0, 0, -1])
         return out
 
     def mul_const(self, a: int, c: int) -> int:
         c %= P
         out = self._new_var()
-        self.gen_ops.append(GenOp(GEN_MULADDC, out, a, self.zero, c))
+        self.gen_ops.append((GEN_MULADDC, out, a, self.zero, c))
         self.gate([a, out], q=[c, -1])
         return out
 
     def add_const(self, a: int, c: int) -> int:
         c %= P
         out = self._new_var()
-        self.gen_ops.append(GenOp(GEN_MULADDC, out, a, self.constant(c), 1))
+        self.gen_ops.append((GEN_MULADDC, out, a, self.constant(c), 1))
         self.gate([a, out], q=[1, -1], qc=c)
         return out
 
@@ -290,8 +293,8 @@ class CircuitBuilder:
         out = self._new_var()
         t = self._new_var()
         # generators: t = a*b ; out = t + c  (single row constrains directly)
-        self.gen_ops.append(GenOp(GEN_MUL, t, a, b))
-        self.gen_ops.append(GenOp(GEN_ADD, out, t, c))
+        self.gen_ops.append((GEN_MUL, t, a, b, 0))
+        self.gen_ops.append((GEN_ADD, out, t, c, 0))
         self.gate([a, b, c, out], qm=1, q=[0, 0, 1, -1])
         return out
 
@@ -320,7 +323,7 @@ class CircuitBuilder:
                 cur = acc
             for j, (c, v) in enumerate(chunk):
                 nv = out if j == len(chunk) - 1 else self._new_var()
-                self.gen_ops.append(GenOp(GEN_MULADDC, nv, v, cur, c))
+                self.gen_ops.append((GEN_MULADDC, nv, v, cur, c))
                 cur = nv
             # constraint row
             wires = [v for _, v in chunk]
@@ -428,7 +431,7 @@ class CircuitBuilder:
         bits = []
         for k in range(n_bits):
             b = self._new_var()
-            self.gen_ops.append(GenOp(GEN_BIT, b, a, const=k))
+            self.gen_ops.append((GEN_BIT, b, a, 0, k))
             self.assert_bool(b)
             bits.append(b)
         self.assert_lincomb_zero([(1 << k, b) for k, b in enumerate(bits)] +
@@ -487,10 +490,10 @@ class CircuitBuilder:
         """x + y - 2xy in one row."""
         out = self._new_var()
         t = self._new_var()
-        self.gen_ops.append(GenOp(GEN_MUL, t, x, y))
+        self.gen_ops.append((GEN_MUL, t, x, y, 0))
         v = self._new_var()
-        self.gen_ops.append(GenOp(GEN_MULADDC, v, t, x, P - 2))
-        self.gen_ops.append(GenOp(GEN_ADD, out, v, y))
+        self.gen_ops.append((GEN_MULADDC, v, t, x, P - 2))
+        self.gen_ops.append((GEN_ADD, out, v, y, 0))
         self.gate([x, y, out], qm=P - 2, q=[1, 1, -1])
         return out
 
@@ -498,16 +501,16 @@ class CircuitBuilder:
         """x + y - xy in one row."""
         out = self._new_var()
         t = self._new_var()
-        self.gen_ops.append(GenOp(GEN_MUL, t, x, y))
+        self.gen_ops.append((GEN_MUL, t, x, y, 0))
         v = self._new_var()
-        self.gen_ops.append(GenOp(GEN_MULADDC, v, t, x, P - 1))
-        self.gen_ops.append(GenOp(GEN_ADD, out, v, y))
+        self.gen_ops.append((GEN_MULADDC, v, t, x, P - 1))
+        self.gen_ops.append((GEN_ADD, out, v, y, 0))
         self.gate([x, y, out], qm=P - 1, q=[1, 1, -1])
         return out
 
     def bit_not(self, x: int) -> int:
         out = self._new_var()
-        self.gen_ops.append(GenOp(GEN_SUB, out, self.one, x))
+        self.gen_ops.append((GEN_SUB, out, self.one, x, 0))
         self.gate([x, out], q=[1, 1], qc=-1)
         return out
 
@@ -518,7 +521,7 @@ class CircuitBuilder:
         SURVEY.md C21): generator computes the inverse, circuit checks
         a*out == 1 (so a=0 makes the circuit unsatisfiable)."""
         out = self._new_var()
-        self.gen_ops.append(GenOp(GEN_INV, out, a))
+        self.gen_ops.append((GEN_INV, out, a, 0, 0))
         self.gate([a, out], qm=1, qc=-1)
         return out
 
@@ -529,11 +532,11 @@ class CircuitBuilder:
         """Boolean out: out = 1 iff a == 0.  Hint z ~ a^-1; constraints
         out = 1 - a*z and a*out = 0 (plonky2-style is_equal/is_zero)."""
         z = self._new_var()
-        self.gen_ops.append(GenOp(GEN_INV, z, a))
+        self.gen_ops.append((GEN_INV, z, a, 0, 0))
         out = self._new_var()
         t = self._new_var()
-        self.gen_ops.append(GenOp(GEN_MUL, t, a, z))
-        self.gen_ops.append(GenOp(GEN_SUB, out, self.one, t))
+        self.gen_ops.append((GEN_MUL, t, a, z, 0))
+        self.gen_ops.append((GEN_SUB, out, self.one, t, 0))
         # a*z + out - 1 = 0
         self.gate([a, z, out], qm=1, q=[0, 0, 1], qc=-1)
         # a*out = 0

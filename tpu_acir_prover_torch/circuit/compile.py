@@ -25,7 +25,9 @@ computed per prove call (multiplicities()).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
+from itertools import chain
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -33,6 +35,7 @@ import numpy as np
 from ..field import gl as _gl
 from ..field.gl import P
 from ..field.gl_np import make_gl
+from ..utils.timing import open_timer
 from .builder import (CircuitBuilder, GEN_EXTERNAL, GEN_CONST, GEN_ADD,
                       GEN_SUB, GEN_MUL, GEN_MULADDC, GEN_INV, GEN_BIT,
                       GEN_HINT_OUT, GEN_MULMULC, Hint,
@@ -81,6 +84,10 @@ class GenProgram:
     const: np.ndarray   # uint64
     order: np.ndarray   # int64: op indices in level order
     segments: List[Tuple[int, int, bool]]  # (start, end, is_hint_segment)
+    # per hint segment, its hints in first-use order: (hint id, input
+    # vars, output vars, each output's place in the hint's result)
+    hint_runs: List[List[Tuple[int, np.ndarray, np.ndarray, List[int]]]] = \
+        field(default_factory=list)
 
 
 @dataclass
@@ -111,6 +118,14 @@ class CompiledCircuit:
         Returns vals: uint64 array of length num_vars.  Uses the native
         witness core (C, native/witnesscore.c) when available; falls back
         to the batched-numpy path otherwise.
+
+        Both paths run the generators in segments: runs of arithmetic ops
+        (C, or numpy batches) between runs of python hints.  Inside an
+        enabled timer's span (``utils/timing.open_timer``) the fill counts
+        into it ``fill_native_s`` and ``fill_hint_s``, the seconds in
+        arithmetic and in hint segments (a hint's ``int()`` conversions and
+        the scatter of its outputs included), reading the clock once a
+        segment; outside one, not at all.
         """
         if self.gen_program is not None:
             from ..native import get_lib
@@ -124,6 +139,9 @@ class CompiledCircuit:
         lo[self.external_vars] = (ext & np.uint64(0xFFFFFFFF)).astype(np.uint32)
         hi[self.external_vars] = (ext >> np.uint64(32)).astype(np.uint32)
         G = _GNP
+        timer = open_timer()
+        spent = [0, 0]  # ns in arithmetic segments, in hint segments
+        last = time.perf_counter_ns() if timer else 0
         for bt in self.gen_batches:
             av = (lo[bt.a], hi[bt.a])
             if bt.op == GEN_CONST:
@@ -175,6 +193,12 @@ class CompiledCircuit:
                 raise AssertionError(f"bad generator opcode {bt.op}")
             lo[bt.out] = r[0]
             hi[bt.out] = r[1]
+            if timer:
+                now = time.perf_counter_ns()
+                spent[bt.op == GEN_HINT_OUT] += now - last
+                last = now
+        if timer:
+            _count_fill(timer, spent)
         return G.to_u64((lo, hi))
 
     def _generate_witness_native(self, external_values: np.ndarray) -> np.ndarray:
@@ -185,21 +209,24 @@ class CompiledCircuit:
         assert ext.shape[0] == self.external_vars.shape[0], \
             f"need {self.external_vars.shape[0]} external values, got {ext.shape[0]}"
         vals[self.external_vars] = ext
+        timer = open_timer()
+        spent = [0, 0]  # ns in C segments, in hint segments
+        last = time.perf_counter_ns() if timer else 0
+        hint_runs = iter(gp.hint_runs)
         for (start, end, is_hint) in gp.segments:
             if not is_hint:
                 native.run_ops(start, end, gp.order, gp.op, gp.out, gp.a,
                                gp.b, gp.const, vals)
-                continue
-            done = {}
-            for t in range(start, end):
-                opi = int(gp.order[t])
-                hid = int(gp.a[opi])
-                j = int(gp.const[opi])
-                if hid not in done:
-                    h = self.hints[hid]
-                    ivals = [int(vals[i]) for i in h.inputs]
-                    done[hid] = [v % P for v in h.fn(ivals)]
-                vals[gp.out[opi]] = done[hid][j]
+            else:
+                for hid, ins, outs, places in next(hint_runs):
+                    res = self.hints[hid].fn(vals[ins].tolist())
+                    vals[outs] = [res[j] % P for j in places]
+            if timer:
+                now = time.perf_counter_ns()
+                spent[is_hint] += now - last
+                last = now
+        if timer:
+            _count_fill(timer, spent)
         return vals
 
     def wire_values(self, vals: np.ndarray) -> np.ndarray:
@@ -263,6 +290,12 @@ class CompiledCircuit:
         return [int(vals[v]) for v in self.public_input_vars]
 
 
+def _count_fill(timer, spent_ns) -> None:
+    """A witness fill's counters (``CompiledCircuit.generate_witness``)."""
+    timer.count("fill_native_s", spent_ns[0] * 1e-9)
+    timer.count("fill_hint_s", spent_ns[1] * 1e-9)
+
+
 def _schedule_generators(builder: CircuitBuilder):
     """Topological level scheduling.  Returns (gen_batches, gen_program):
     the batched-numpy fallback plan and the flat native plan.  The level
@@ -270,11 +303,12 @@ def _schedule_generators(builder: CircuitBuilder):
     when available, mirroring the pure-Python loop below."""
     ops = builder.gen_ops
     n_ops = len(ops)
-    op_arr = np.fromiter((o.op for o in ops), dtype=np.int32, count=n_ops)
-    out_arr = np.fromiter((o.out for o in ops), dtype=np.int64, count=n_ops)
-    a_arr = np.fromiter((o.a for o in ops), dtype=np.int64, count=n_ops)
-    b_arr = np.fromiter((o.b for o in ops), dtype=np.int64, count=n_ops)
-    cst_arr = np.fromiter((o.const % (1 << 64) for o in ops),
+    cols = list(zip(*ops)) if ops else [()] * 5
+    op_arr = np.fromiter(cols[0], dtype=np.int32, count=n_ops)
+    out_arr = np.fromiter(cols[1], dtype=np.int64, count=n_ops)
+    a_arr = np.fromiter(cols[2], dtype=np.int64, count=n_ops)
+    b_arr = np.fromiter(cols[3], dtype=np.int64, count=n_ops)
+    cst_arr = np.fromiter((c % (1 << 64) for c in cols[4]),
                           dtype=np.uint64, count=n_ops)
     hint_in_off = np.zeros(len(builder.hints) + 1, dtype=np.int64)
     for i, h in enumerate(builder.hints):
@@ -303,20 +337,20 @@ def _schedule_generators(builder: CircuitBuilder):
             changed = False
             guard += 1
             assert guard <= len(ops) + 2, "generator dependency cycle"
-            for op in ops:
+            for code, out, a, b, _ in ops:
                 lv = 0
-                if op.op in uses_a:
-                    lv = max(lv, level[op.a] + 1)
-                if op.op in uses_b:
-                    lv = max(lv, level[op.b] + 1)
-                if op.op == GEN_HINT_OUT:
-                    h = builder.hints[op.a]
+                if code in uses_a:
+                    lv = max(lv, level[a] + 1)
+                if code in uses_b:
+                    lv = max(lv, level[b] + 1)
+                if code == GEN_HINT_OUT:
+                    h = builder.hints[a]
                     for i in h.inputs:
                         lv = max(lv, level[i] + 1)
-                if op.op in (GEN_CONST, GEN_EXTERNAL):
+                if code in (GEN_CONST, GEN_EXTERNAL):
                     lv = 0
-                if lv != level[op.out]:
-                    level[op.out] = lv
+                if lv != level[out]:
+                    level[out] = lv
                     changed = True
 
     op_levels = level[out_arr]
@@ -349,8 +383,24 @@ def _schedule_generators(builder: CircuitBuilder):
         starts = np.concatenate([[0], flips, [order.size]])
         for s, e in zip(starts[:-1], starts[1:]):
             segments.append((int(s), int(e), bool(is_hint[s])))
+    hint_runs = []
+    for s, e, hint_seg in segments:
+        if not hint_seg:
+            continue
+        run: dict = {}
+        seg = order[s:e]
+        for h, j, o in zip(a_arr[seg].tolist(), cst_arr[seg].tolist(),
+                           out_arr[seg].tolist()):
+            outs, places = run.setdefault(h, ([], []))
+            outs.append(o)
+            places.append(j)
+        hint_runs.append([
+            (h, np.asarray(builder.hints[h].inputs, dtype=np.int64),
+             np.asarray(outs, dtype=np.int64), places)
+            for h, (outs, places) in run.items()])
     program = GenProgram(op=op_arr, out=out_arr, a=a_arr, b=b_arr,
-                         const=cst_arr, order=order, segments=segments)
+                         const=cst_arr, order=order, segments=segments,
+                         hint_runs=hint_runs)
     return batches, program
 
 
@@ -372,15 +422,22 @@ def compile_circuit(builder: CircuitBuilder) -> CompiledCircuit:
     for j, pv in enumerate(builder.public_inputs):
         selectors[SEL_Q0, j] = 1
         wire_vars[0, j] = pv
-    for r, row in enumerate(builder.rows):
-        i = num_pub + r
-        for k in range(NUM_PAIRS):
-            selectors[SEL_QM0 + k, i] = row.qm[k]
-        for k in range(NUM_WIRES):
-            selectors[SEL_Q0 + k, i] = row.q[k]
-            if row.wires[k] is not None:
-                wire_vars[k, i] = row.wires[k]
-        selectors[SEL_QC, i] = row.qc
+    rows = builder.rows
+    gate = slice(num_pub, num_pub + num_gate_rows)
+
+    def column_block(values, dtype, width):
+        return np.fromiter(values, dtype=dtype, count=num_gate_rows * width) \
+            .reshape(num_gate_rows, width).T
+
+    selectors[SEL_QM0:SEL_QM0 + NUM_PAIRS, gate] = column_block(
+        chain.from_iterable(row.qm for row in rows), np.uint64, NUM_PAIRS)
+    selectors[SEL_Q0:SEL_Q0 + NUM_WIRES, gate] = column_block(
+        chain.from_iterable(row.q for row in rows), np.uint64, NUM_WIRES)
+    selectors[SEL_QC, gate] = column_block(
+        (row.qc for row in rows), np.uint64, 1)[0]
+    wire_vars[:, gate] = column_block(
+        (0 if w is None else w for row in rows for w in row.wires),
+        np.int64, NUM_WIRES)
 
     # lookup rows: flush pending lookups W per row, qLK = 1, padding -> var 0
     base = num_pub + num_gate_rows
@@ -420,11 +477,9 @@ def compile_circuit(builder: CircuitBuilder) -> CompiledCircuit:
     perm[order] = order[nxt]
     sigma = ids.reshape(-1)[perm].reshape(NUM_WIRES, n)
 
-    external_vars = np.array(
-        [op.out for op in builder.gen_ops if op.op == GEN_EXTERNAL],
-        dtype=np.int64)
-
     gen_batches, gen_program = _schedule_generators(builder)
+    # in creation order
+    external_vars = gen_program.out[gen_program.op == GEN_EXTERNAL]
     return CompiledCircuit(
         n=n, log_n=log_n, num_vars=builder.num_vars,
         selectors=selectors, wire_vars=wire_vars, sigma=sigma,

@@ -86,13 +86,13 @@ def big_value_hint(vals: List[int], n_limbs: int) -> int:
     return sum(v << (LIMB_BITS * i) for i, v in enumerate(vals[:n_limbs]))
 
 
-def _col_value(col, get):
+def _col_value(col, vals):
     s = 0
     for t in col:
         if t[0] == "l":
-            s += t[1] * get(t[2])
+            s += t[1] * vals[t[2]]
         else:
-            s += t[1] * get(t[2]) * get(t[3])
+            s += t[1] * vals[t[2]] * vals[t[3]]
     return s
 
 
@@ -147,8 +147,7 @@ def assert_col_identity(b: CircuitBuilder, lhs_cols: List[list],
         outs = []
         carry = 0
         for (sl, sr) in sym[:-1]:
-            diff = _col_value(sl, lambda i: vals[i]) \
-                - _col_value(sr, lambda i: vals[i]) + carry
+            diff = _col_value(sl, vals) - _col_value(sr, vals) + carry
             assert diff % LIMB_BASE == 0, "column identity does not balance"
             carry = diff >> LIMB_BITS
             enc = carry + CARRY_OFF
@@ -232,7 +231,7 @@ def _balance(b: CircuitBuilder, cols: List[list], out_limbs: int,
     def fn(vals):
         total = 0
         for c, col in enumerate(sym):
-            total += _col_value(col, lambda i: vals[i]) << (LIMB_BITS * c)
+            total += _col_value(col, vals) << (LIMB_BITS * c)
         assert total < (1 << (LIMB_BITS * out_limbs)), \
             "balance output width too small"
         return limbs_of_int(total, out_limbs)

@@ -14,7 +14,12 @@ process-wide proof id, the collector's pauses are counted while it runs
 record goes to the bounded log ``finished()``.  The
 provers add the card's time by CUDA events: ``replay_device_s`` around the
 fused graph's replay, ``phase_device_s[name]`` over each per-phase phase
-(``device_phase``); the compressor counts its transcript replays
+(``device_phase``).  While a span is open its timer is ``open_timer()``,
+so code deep inside it counts without being handed the timer: the witness
+fill (``circuit/compile.py`` ``generate_witness``, in ``witness_fill``)
+splits its time between the arithmetic segments (``fill_native_s``: the C
+core, or numpy batches without it) and the python hint segments
+(``fill_hint_s``).  The compressor counts its transcript replays
 (``compress_replays``).  A disabled timer, or none, keeps nothing.
 
 ``python -m tpu_acir_prover_torch.cli prove`` with ``TPU_ACIR_TIMING=1``
@@ -30,6 +35,7 @@ import sys
 import time
 from collections import deque
 from contextlib import contextmanager, nullcontext
+from contextvars import ContextVar
 
 import torch
 from torch.autograd import profiler as _profiler
@@ -37,6 +43,8 @@ from torch.autograd import profiler as _profiler
 # the finished proofs' records, oldest first
 _FINISHED: deque = deque(maxlen=4096)
 _PROOF_IDS = itertools.count(1)
+# the enabled timer whose span is open
+_OPEN: ContextVar = ContextVar("open_timer", default=None)
 
 
 def finished() -> deque:
@@ -66,8 +74,12 @@ class PhaseTimer:
         mark = _profiler.record_function(name, str(self.proof_id)) \
             if _profiler._is_profiler_enabled else nullcontext()
         t0 = time.perf_counter_ns()
-        with mark:
-            yield
+        token = _OPEN.set(self)
+        try:
+            with mark:
+                yield
+        finally:
+            _OPEN.reset(token)
         t1 = time.perf_counter_ns()
         self.phases.append((name, (t1 - t0) * 1e-9))
         self.spans.append((name, t0, t1))
@@ -156,6 +168,11 @@ def proof(timer):
             "spans": timer.spans[timer._first_span:],
             "profiler_offset_ns": time.time_ns() - time.perf_counter_ns(),
             "counters": timer.counters})
+
+
+def open_timer():
+    """The enabled timer whose span is open, or None."""
+    return _OPEN.get()
 
 
 def env_timer() -> PhaseTimer:
