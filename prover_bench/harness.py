@@ -41,6 +41,13 @@ CHECK_SALT = 0x5EED_C4EC
 # warm-up's fastest warm proof would fit into the window (traced runs and
 # a slower host need fewer; window proofs read down to ~0.8 of it)
 POOL_MARGIN = 2
+# seconds between the traced window's last proof, with the card idle, and
+# the profiler's stop: CUPTI writes a kernel's record (its timestamps) on
+# its own thread after the kernel ends, and the pause lets it complete and
+# hand over every record of the window before the stop flushes, so that
+# none is missing from the launch check or lies outside the window.  The
+# window's metrics end at its last proof, so the pause is in none of them.
+TRACE_SETTLE_S = 2.0
 
 
 class Proof(NamedTuple):
@@ -195,12 +202,17 @@ def run(root: Path, workload: str, seed: int, seconds: float, traced: bool,
         codec.save_program_artifact(art, prog.build(cfg))
         rng = random.Random(seed)
         wits: List[str] = []
+        pool_s = 0.0
 
         def make_witness_files(upto: int) -> None:
             """Witness files ``len(wits)`` .. ``upto - 1``, the next inputs
             drawn from the seed; the generator's outputs are held to the
             plain reference first (a fault of the benchmark's inputs ends
-            the run)."""
+            the run).  Their seconds go to ``pool_s``, not to ``setup_s``:
+            the files are the benchmark's inputs (a user's ``nargo
+            execute``), not the program's set-up."""
+            nonlocal pool_s
+            t0 = time.perf_counter()
             while len(wits) < upto:
                 inputs = prog.draw(cfg, rng)
                 wm = prog.witness(cfg, inputs)
@@ -211,6 +223,7 @@ def run(root: Path, workload: str, seed: int, seconds: float, traced: bool,
                 wits.append(str(work / f"w{len(wits)}.gz"))
                 codec.save_witness_stack(wits[-1], ir.WitnessStack(
                     [ir.StackItem(0, wm)]))
+            pool_s += time.perf_counter() - t0
 
         warm = traffic["warmup_proofs"]
         make_witness_files(warm)
@@ -231,7 +244,7 @@ def run(root: Path, workload: str, seed: int, seconds: float, traced: bool,
         api.write_vk_file(art, vk_path, pcfg, device)
         if device == "cuda":
             torch.cuda.synchronize()
-        setup_s = time.perf_counter() - t_start
+        setup_s = time.perf_counter() - t_start - pool_s
 
         # ---- the window ----------------------------------------------------
         prof = None
@@ -276,8 +289,13 @@ def run(root: Path, workload: str, seed: int, seconds: float, traced: bool,
             proofs.append(Proof(nxt, t0, t1, phases, err, c1 - c0))
             nxt += 1
         window_s = proofs[-1].end - w0
+        print(f"set-up: {setup_s:.3f} s; witness pool: {pool} files in "
+              f"{pool_s:.6f} s, outside setup_s", file=sys.stderr)
         _describe(proofs)
         if prof is not None:
+            if device == "cuda":
+                torch.cuda.synchronize()
+            time.sleep(TRACE_SETTLE_S)
             prof.stop()
         found = forbidden_modules()
         if found:

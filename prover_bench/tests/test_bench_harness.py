@@ -1,10 +1,13 @@
 """The harness's CPU dry path: a whole run on a few-row program with the
 look for a card skipped, ``correct`` true, and no module of JAX or the JAX
 package loaded; the control and the faults a proof can have make
-``correct`` false; a traced run whose profiler misses launches fails."""
+``correct`` false; a traced run whose profiler misses launches fails;
+the harness's own witness files stay out of ``setup_s``."""
 
 import json
+import re
 import shutil
+import time
 from pathlib import Path
 
 import pytest
@@ -193,6 +196,30 @@ def test_a_wrong_output_in_the_inputs_ends_the_run(root, monkeypatch):
         _run(root)
 
 
+def test_the_witness_pool_stays_out_of_setup_s(root, monkeypatch, capsys):
+    """The witness files are the benchmark's inputs, not the program's
+    set-up: with each file's generation slowed by a fixed sleep, ``setup_s``
+    stays below the pool's total sleep, which the pool's seconds on
+    standard error cover."""
+    from prover_bench.programs import square_chain
+    witness, files, nap = square_chain.witness, [], 2.5
+
+    def slow(cfg, inputs):
+        files.append(1)
+        time.sleep(nap)
+        return witness(cfg, inputs)
+
+    monkeypatch.setattr(square_chain, "witness", slow)
+    line = _run(root)
+    assert line["correct"], line["compared"]
+    slept = nap * len(files)
+    said = re.search(r"witness pool: (\d+) files in ([0-9.]+) s",
+                     capsys.readouterr().err)
+    assert said and int(said[1]) == len(files) >= 3
+    assert float(said[2]) >= slept
+    assert line["metrics"]["setup_s"]["value"] < slept
+
+
 def test_missed_launches_fail_the_trace():
     s = trace.Summary(1.0, 2.0, 1, {}, {"leaf_hash": 14, "ext_prod": 14},
                       [], [])
@@ -201,6 +228,50 @@ def test_missed_launches_fail_the_trace():
         trace.check_launches(s, {"leaf_hash": 15, "ext_prod": 14})
     with pytest.raises(trace.TraceIncomplete):
         trace.check_launches(s, {"leaf_hash": 14, "ext_prod": 14, "grind": 1})
+
+
+class _Event:
+    def __init__(self, kind, name, start, end):
+        self.kind, self._name, self.start, self.end = kind, name, start, end
+
+    def activity_type(self):
+        return self.kind
+
+    def name(self):
+        return self._name
+
+    def start_ns(self):
+        return self.start
+
+    def end_ns(self):
+        return self.end
+
+
+def test_launches_outside_the_window_are_named():
+    """A family's record that lies outside the window's proof spans is not
+    seen as launched there, and the launch check names it."""
+    events = [_Event("user_annotation", trace.PROOF_SPAN, 100, 1000),
+              _Event("kernel", "void leaf_hash_kernel(unsigned long const*)",
+                     200, 300),
+              _Event("kernel", "leaf_hash_kernel", 1500, 1600),
+              _Event("kernel", "leaf_hash_kernel", 0, 0),
+              _Event("kernel", "other_kernel", 400, 500)]
+
+    class Prof:
+        class profiler:
+            class kineto_results:
+                @staticmethod
+                def events():
+                    return events
+
+    s = trace.summarize(Prof, {"merkle": {"leaf_hash_kernel": "leaf_hash"}})
+    assert s.launches == {"leaf_hash": 1}
+    assert s.outside == {"leaf_hash": 2}
+    assert s.busy_s == 200 / 1e9 and s.window_s == 900 / 1e9
+    trace.check_launches(s, {"leaf_hash": 1})
+    with pytest.raises(trace.TraceIncomplete,
+                       match="outside the window: leaf_hash 2;"):
+        trace.check_launches(s, {"leaf_hash": 3})
 
 
 def test_run_py_fails_without_a_card(tmp_path):

@@ -41,6 +41,8 @@ class Summary(NamedTuple):
     launches: Dict[str, int]                 # counter -> launches seen
     device_ops: list
     idle_gaps: list
+    outside: Dict[str, int] = {}             # counter -> launches seen
+                                             # outside the window
 
 
 def load_families(root: Path) -> Dict[str, Dict[str, str]]:
@@ -149,9 +151,11 @@ def summarize(prof, families: Dict[str, Dict[str, str]]) -> Summary:
 
     by_kernel = defaultdict(lambda: [0, 0])
     intervals = []
+    off = defaultdict(int)
     for s, e, name in device:
         s, e = max(s, w0), min(e, w1)
         if e <= s:
+            off[_own(kernel_name(name))] += 1
             continue
         intervals.append((s, e))
         k = by_kernel[kernel_name(name)]
@@ -165,6 +169,7 @@ def summarize(prof, families: Dict[str, Dict[str, str]]) -> Summary:
         own[_own(name)][0] += n
         own[_own(name)][1] += ns
     launches: Dict[str, int] = defaultdict(int)
+    outside: Dict[str, int] = defaultdict(int)
     fam_out = {}
     for fam, kernels in families.items():
         n, ns = 0, 0
@@ -173,6 +178,7 @@ def summarize(prof, families: Dict[str, Dict[str, str]]) -> Summary:
             n += seen[0]
             ns += seen[1]
             launches[counter] += seen[0]
+            outside[counter] += off.get(k, 0)
         fam_out[fam] = {"launches": n, "seconds": ns / 1e9}
 
     ops = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:TOP]
@@ -209,7 +215,8 @@ def summarize(prof, families: Dict[str, Dict[str, str]]) -> Summary:
                  for label, (n, ns, mx) in
                  sorted(idle.items(), key=lambda kv: -kv[1][1])[:TOP]]
     return Summary(busy_ns / 1e9, (w1 - w0) / 1e9, len(proofs), fam_out,
-                   dict(launches), device_ops, idle_gaps)
+                   dict(launches), device_ops, idle_gaps,
+                   {c: n for c, n in outside.items() if n})
 
 
 def check_launches(summary: Summary, expected: Dict[str, int]) -> None:
@@ -221,5 +228,8 @@ def check_launches(summary: Summary, expected: Dict[str, int]) -> None:
         raise TraceIncomplete(
             "profiler launches != counters (seen, counted): " +
             ", ".join(f"{c} {s} != {n}" for c, (s, n) in sorted(wrong.items()))
+            + "; records of these counters outside the window: " +
+            (", ".join(f"{c} {n}" for c, n in sorted(summary.outside.items())
+                       if c in wrong) or "none")
             + "; the device operations that took most time: " +
             ", ".join(f"{n} {t:.6f} s" for n, t in summary.device_ops))
